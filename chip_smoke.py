@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's inference path once on one GPU.
+"""Drive the PyTorch/CUDA port's inference and training paths once on one
+GPU.
 
     python3 chip_smoke.py
 
@@ -7,21 +8,40 @@ Phases (any failure raises and exits non-zero; there is no CPU carry-on):
 
 1. Device: the card's name and power limit (nvidia-smi), the `highest`
    float32 policy (TF32 off for matmuls and cuDNN convs).
-2. Build: the log_qz CUDA kernel from disvae_tpu_torch/csrc/log_qz.cu
-   (nvcc, into build/disvae_tpu_torch/), with its compile time.
-3. Kernel vs plain PyTorch at the MIG/AAM sweeps' real shapes (marginal
-   L=1, M=737,280; conditional L=3, M=245,760 and L=32, M=23,040; D=10,
+2. Build: the CUDA sources disvae_tpu_torch/csrc/log_qz.cu and
+   convt3_bwd.cu, one nvcc each, started together (into
+   build/disvae_tpu_torch/), with compile times and ptxas register/spill
+   lines.
+3. K3 vs plain PyTorch at the MIG/AAM sweeps' real shapes (marginal L=1,
+   M=737,280; conditional L=3, M=245,760 and L=32, M=23,040; D=10,
    S=2,000): max |kernel - plain| <= 1e-4, both times (CUDA events, warm,
    median).
-4. Main path: the full 737,280-image dsprites lattice fabricated with
+4. K1/K2 (the final decoder convT's backward) vs plain at the training
+   path's shapes: x (256, 32, 32, 32) with dy (256, 3, 64, 64) and
+   (128, ...), Cout = 1 at (256, 32, 16, 16), and (6, 8, 4, 4) -> Cout 5.
+   float32: max |d| / max |ref| <= 1e-5; bf16 operands: <= 1e-3 against
+   the plain version on the same operands (float32 sums) and <= 3e-2
+   against cuDNN's float32 backward. Times at b256 celeba in bf16: K1, K2,
+   their plain versions, cuDNN's backward of the layer.
+5. Eval path: the full 737,280-image dsprites lattice fabricated with
    tools/fabricate_dsprites.py, a seeded-init Burgess 64x64x1 latent-10
    checkpoint written with the port's save_model, then the port's CLI
    `<name> --is-eval-only --is-metrics -l btcvae`. Checks finite MIG,
-   AAM and test losses in metrics.log / test_losses.log and that the run
-   launched the log_qz kernel. Then the entropy estimate on a 4,096-image
-   subset, kernel on the GPU against the plain version on the CPU.
-5. Serving: ServingModel.from_dir answers encode (1, 7, 57 images),
+   AAM and test losses and that the run launched K3; then the entropy
+   estimate on a 4,096-image subset, kernel against the CPU plain version.
+6. Serving: ServingModel.from_dir answers encode (1, 7, 57 images),
    decode, reconstruct and sample(8).
+7. Training path: a 25,637-image celeba subset (tools/fabricate_celeba.py;
+   100 batches of 256 and a tail of 37), the K1/K2 hook set, then the CLI
+   with btcvae_celeba's settings at b256 under `--precision default` for 2
+   epochs. Checks one K1 and one K2 launch per train step, the log, the
+   checkpoints, a falling epoch loss and finite test losses; prints each
+   epoch's images/sec.
+8. A/B of the steady-state b256 train step, with the hook and without,
+   turns (without, with, with, without), then one torch.profiler window
+   each: device time by kernel and the device's idle share.
+9. FactorVAE through the CLI (b128 doubled to b256, 2 epochs); K1/K2 run
+   on the 128-image half batch.
 
 Its last two lines are JSON: the kernels' record, then
 {"ok": true, "device": {...}}. Scratch data lives under build/ and is
@@ -36,6 +56,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -44,6 +65,15 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 1234
 ATOL = 1e-4  # log-density bound of tests/test_metrics.py (kernel vs scan)
+# K1/K2 bounds on max |d| / max |ref|: float32 (tests/test_models.py:280),
+# bf16 operands against float32 sums of the same operands, and against
+# cuDNN's float32 backward (tests/test_models.py:337)
+CONVT_F32, CONVT_BF16, CONVT_VS_CUDNN = 1e-5, 1e-3, 3e-2
+# (n, h, cin, cout): the path's b256 celeba layer, the FactorVAE half batch,
+# the 32^2 datasets' Cout = 1, and an odd shape
+CONVT_SHAPES = [(256, 32, 32, 3), (128, 32, 32, 3), (256, 16, 32, 1),
+                (6, 4, 8, 5)]
+N_CELEBA = 25637  # 100 batches of 256 and a ragged tail of 37
 # (L, M, D, S) of the entropy sweeps at dsprites scale
 KERNEL_SHAPES = [(1, 737280, 10, 2000), (3, 245760, 10, 2000),
                  (32, 23040, 10, 2000)]
@@ -81,14 +111,33 @@ def phase_device():
         torch.__version__, torch.version.cuda))
 
 
-def phase_build(K):
-    t0 = time.perf_counter()
-    path, compiler_log = K.build()
-    log("build: {} in {:.2f} s".format(os.path.relpath(path, REPO),
-                                       time.perf_counter() - t0))
-    for line in compiler_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log("  ptxas:", line.strip())
+def phase_build(modules):
+    """One nvcc per CUDA source, all started together."""
+    out = {}
+
+    def run(name, mod):
+        t0 = time.perf_counter()
+        try:
+            out[name] = (mod.build(), time.perf_counter() - t0)
+        except BaseException as e:  # re-raised below, in the main thread
+            out[name] = e
+
+    threads = [threading.Thread(target=run, args=item)
+               for item in modules.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for name in modules:
+        if isinstance(out[name], BaseException):
+            raise out[name]
+        (path, compiler_log), seconds = out[name]
+        log("build {}: {} in {:.2f} s".format(
+            name, os.path.relpath(path, REPO), seconds))
+        for line in compiler_log.splitlines():
+            if "Compiling entry" in line or "registers" in line \
+                    or "spill" in line:
+                log("  ptxas:", line.strip())
 
 
 def phase_kernels(K):
@@ -125,6 +174,85 @@ def phase_kernels(K):
     return record
 
 
+def _rel(ref, got):
+    return ((got.float() - ref.float()).abs().max()
+            / ref.float().abs().max().clamp_min(1e-30)).item()
+
+
+def phase_convt_kernels(C):
+    """K1/K2 against their plain versions and cuDNN at the path's shapes.
+    Returns the kernels' records (b256 celeba times in bf16)."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    worst = {"convt3_dw": 0.0, "convt3_dx": 0.0}
+    record = None
+    for n, h, cin, cout in CONVT_SHAPES:
+        x32 = torch.from_numpy(np.maximum(
+            rng.standard_normal((n, cin, h, h), np.float32), 0)).to(dev)
+        w = torch.from_numpy(0.1 * rng.standard_normal(
+            (cin, cout, 4, 4), np.float32)).to(dev)
+        dy32 = torch.from_numpy(1e-2 * rng.standard_normal(
+            (n, cout, 2 * h, 2 * h), np.float32)).to(dev)
+        # cuDNN's float32 backward of the layer (TF32 off: `highest`)
+        ref_dx, ref_dw, _ = torch.ops.aten.convolution_backward(
+            dy32, x32, w, [cout], [2, 2], [1, 1], [1, 1], True, [0, 0], 1,
+            [True, True, True])
+        errs = []
+        for dt in (torch.float32, torch.bfloat16):
+            x, dy = x32.to(dt), dy32.to(dt)
+            dw = C.convt3_dw(x, dy)
+            dx = C.convt3_dx(dy, w, torch.float32)
+            dx_t = C.convt3_dx(dy, w)
+            p_dw = C.convt3_dw_plain(x, dy, dt)
+            p_dx = C.convt3_dx_plain(dy, w, dt)
+            torch.cuda.synchronize()
+            bound = CONVT_F32 if dt == torch.float32 else CONVT_BF16
+            e = {"dw": _rel(p_dw, dw), "dx": _rel(p_dx, dx),
+                 "dw_cudnn": _rel(ref_dw, dw), "dx_cudnn": _rel(ref_dx, dx)}
+            bad = [k for k in ("dw", "dx") if not e[k] <= bound]
+            bad += [k for k in ("dw_cudnn", "dx_cudnn")
+                    if not e[k] <= CONVT_VS_CUDNN]
+            if dx_t.dtype != dt or not torch.isfinite(dx_t).all().item():
+                bad.append("dx in {}".format(dt))
+            if bad:
+                raise AssertionError("K1/K2 at {} {}: {} out of bounds: {}"
+                                     .format((n, h, cin, cout), dt, bad, e))
+            worst["convt3_dw"] = max(worst["convt3_dw"],
+                                     (dw - p_dw).abs().max().item())
+            worst["convt3_dx"] = max(worst["convt3_dx"],
+                                     (dx - p_dx).abs().max().item())
+            errs.append("{} dw {:.2e} dx {:.2e} (vs cuDNN f32: dw {:.2e} "
+                        "dx {:.2e})".format(str(dt)[6:], e["dw"], e["dx"],
+                                            e["dw_cudnn"], e["dx_cudnn"]))
+        log("K1/K2 (n, h, cin, cout) = {}: max |d|/max |ref| {}".format(
+            (n, h, cin, cout), "; ".join(errs)))
+        if record is None:  # b256 celeba, bf16 operands as on the path
+            x, dy, wb = x32.bfloat16(), dy32.bfloat16(), w.bfloat16()
+            t = {
+                "K1": time_ms(lambda: C.convt3_dw(x, dy), 20),
+                "K2": time_ms(lambda: C.convt3_dx(dy, w), 20),
+                "plain K1": time_ms(
+                    lambda: C.convt3_dw_plain(x, dy, torch.bfloat16), 10),
+                "plain K2": time_ms(
+                    lambda: C.convt3_dx_plain(dy, w, torch.bfloat16), 10),
+                "cuDNN dx+dw+db": time_ms(
+                    lambda: torch.ops.aten.convolution_backward(
+                        dy, x, wb, [cout], [2, 2], [1, 1], [1, 1], True,
+                        [0, 0], 1, [True, True, True]), 20),
+            }
+            log("K1/K2 times at b256 celeba, bf16, ms (median of warm runs):"
+                " " + ", ".join("{} {:.4f}".format(k, v)
+                                for k, v in t.items()))
+            record = {"convt3_dw": {"ms": t["K1"], "plain_ms": t["plain K1"]},
+                      "convt3_dx": {"ms": t["K2"], "plain_ms": t["plain K2"]},
+                      "cudnn_ms": t["cuDNN dx+dw+db"]}
+        del x32, w, dy32
+        torch.cuda.empty_cache()
+    for k in worst:
+        record[k]["max_abs_err"] = worst[k]
+    return record
+
+
 def phase_main_path(K, scratch):
     root = os.path.join(scratch, "data")
     t0 = time.perf_counter()
@@ -157,7 +285,7 @@ def phase_main_path(K, scratch):
     try:
         K.log_qz.launches = 0
         t0 = time.perf_counter()
-        evaluator = cli.main(cli.parse_arguments(
+        _, evaluator = cli.main(cli.parse_arguments(
             [name, "--is-eval-only", "--is-metrics", "-l", "btcvae",
              "--no-progress-bar", "-s", str(SEED)]))
         seconds = time.perf_counter() - t0
@@ -244,30 +372,270 @@ def phase_serving(exp_dir, datasets):
     log("serve sample(8): ok")
 
 
+def _cli_run(cli, scratch, argv):
+    cwd = os.getcwd()
+    os.chdir(scratch)
+    try:
+        t0 = time.perf_counter()
+        trainer, evaluator = cli.main(cli.parse_arguments(argv))
+        return trainer, evaluator, time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+
+
+def _read_log(exp_dir):
+    with open(os.path.join(exp_dir, "train_losses.log")) as f:
+        lines = f.read().strip().split("\n")
+    if lines[0] != "Epoch,Loss,Value":
+        raise AssertionError("train_losses.log header: {}".format(lines[0]))
+    return [line.split(",") for line in lines[1:]]
+
+
+def phase_train(C, scratch):
+    """btcvae_celeba's settings through the CLI at b256 under `default`,
+    with the K1/K2 hook set. Returns K1's and K2's launch counts."""
+    from disvae_tpu_torch import cli
+    from disvae_tpu_torch.models import burgess
+    from disvae_tpu_torch.ops.precision import configure
+    from disvae_tpu_torch.utils.modelIO import load_metadata
+
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable,
+                    os.path.join(REPO, "tools", "fabricate_celeba.py"),
+                    "--root", os.path.join(scratch, "data", "celeba"),
+                    "--n", str(N_CELEBA)],
+                   check=True, stdout=subprocess.DEVNULL)
+    log("fabricated a {:,}-image celeba subset in {:.1f} s".format(
+        N_CELEBA, time.perf_counter() - t0))
+
+    name = "chip_smoke_btcvae_celeba"
+    burgess.set_final_convt_impl(C.conv_transpose2d_pl)
+    try:
+        C.convt3_dw.launches = C.convt3_dx.launches = 0
+        trainer, _, seconds = _cli_run(cli, scratch, [
+            name, "-d", "celeba", "-l", "btcvae", "--btcvae-B", "6.4",
+            "--lr", "5e-4", "-b", "256", "-e", "2", "--checkpoint-every",
+            "1", "--precision", "default", "--no-viz-gif",
+            "--no-progress-bar", "-s", str(SEED)])
+        launches = (C.convt3_dw.launches, C.convt3_dx.launches)
+    finally:
+        burgess.set_final_convt_impl(burgess.conv_transpose2d)
+        configure("highest")
+
+    exp_dir = os.path.join(scratch, cli.RES_DIR, name)
+    steps = trainer.state.step
+    stats = trainer.epoch_stats
+    log("train CLI (btcvae, celeba {:,} images, b256, default, K1/K2 hook):"
+        " {:.1f} s in all, {} steps, K1 launches {}, K2 launches {}".format(
+            N_CELEBA, seconds, steps, *launches))
+    for e in stats:
+        log("  epoch {}: mean loss {:.4f}, {:.0f} images/sec".format(
+            e["epoch"] + 1, e["loss"], e["images_per_sec"]))
+    if steps != 2 * -(-N_CELEBA // 256) or launches != (steps, steps):
+        raise AssertionError("expected one K1 and one K2 launch per train "
+                             "step: {} steps, launches {}".format(steps,
+                                                                 launches))
+    rows = _read_log(exp_dir)
+    if sorted({r[0] for r in rows}) != ["0", "1"] \
+            or not all(math.isfinite(float(r[2])) for r in rows):
+        raise AssertionError("train_losses.log rows: {}".format(rows[:3]))
+    if not stats[1]["loss"] < stats[0]["loss"]:
+        raise AssertionError("the epoch loss did not fall: {}".format(stats))
+    for f in ("model.pt", "model-0.pt", "model-1.pt", "specs.json",
+              "train_state.pt"):
+        if not os.path.exists(os.path.join(exp_dir, f)):
+            raise AssertionError("missing artifact " + f)
+    losses = load_metadata(exp_dir, filename="test_losses.log")
+    log("test_losses.log: loss {loss}, recon_loss {recon_loss}, tc_loss "
+        "{tc_loss}".format(**losses))
+    if not all(math.isfinite(v) for v in losses.values()):
+        raise AssertionError("non-finite test losses")
+    return launches
+
+
+def _device_profile(prof):
+    """(device-busy seconds, [(kernel, ms, calls)] by device time) of a
+    torch.profiler window, from its device events: the busy time is the
+    union of their intervals."""
+    intervals, by_name = [], {}
+    for e in prof.events():
+        # GPU-side annotation ranges (e.g. Optimizer.step) span kernels and
+        # the gaps between them: not device work of their own
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                or getattr(e, "is_user_annotation", False):
+            continue
+        intervals.append((e.time_range.start, e.time_range.end))
+        ms, calls = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, calls + 1)
+    busy, end = 0.0, -math.inf
+    for a, b in sorted(intervals):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    return busy / 1e6, [(k, ms, n) for k, (ms, n) in top]
+
+
+def phase_ab(C, datasets):
+    """Steady-state b256 btcvae train step under `default` on the resident
+    celeba subset, with the plain final convT and with the K1/K2 hook."""
+    from disvae_tpu_torch.data.resident import ResidentData
+    from disvae_tpu_torch.models import burgess
+    from disvae_tpu_torch.models.vae import init_specific_model
+    from disvae_tpu_torch.ops.losses import get_loss_f
+    from disvae_tpu_torch.ops.precision import configure
+    from disvae_tpu_torch.train.state import create_train_state
+    from disvae_tpu_torch.train.steps import make_optimizer, make_train_step
+
+    dev = torch.device("cuda")
+    ds = datasets.get_dataset("celeba")()
+    wire = ResidentData(ds, dev).wire
+    cfg = get_loss_f("btcvae", rec_dist="bernoulli", reg_anneal=0,
+                     btcvae_A=1.0, btcvae_B=6.4, btcvae_G=1.0,
+                     n_data=len(ds))
+    step = make_train_step(cfg)
+    idx = torch.from_numpy(np.random.default_rng(SEED).permutation(
+        len(ds))[:100 * 256].reshape(100, 256)).to(dev)
+    impls = {"plain convT": burgess.conv_transpose2d,
+             "K1/K2 hook": C.conv_transpose2d_pl}
+    states, cursor = {}, {k: 0 for k in impls}
+
+    def run(name, n):
+        burgess.set_final_convt_impl(impls[name])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step(states[name], wire.index_select(
+                0, idx[cursor[name] % len(idx)]))
+            cursor[name] += 1
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    configure("default")
+    try:
+        for name in impls:
+            model = init_specific_model(
+                "Burgess", (3, 64, 64), 10,
+                generator=torch.Generator().manual_seed(SEED), device=dev)
+            states[name] = create_train_state(
+                model, make_optimizer(model.parameters(), 5e-4),
+                torch.Generator(device=dev).manual_seed(SEED),
+                loss_cfg=cfg)
+            run(name, 10)  # warm-up: cuDNN algorithm choice, allocator
+        times = {k: [] for k in impls}
+        for name in ("plain convT", "K1/K2 hook", "K1/K2 hook",
+                     "plain convT"):
+            times[name].append(run(name, 40))
+        for name in impls:
+            log("A/B {}: train step {} ms (two runs of 40 steps), {:.0f} "
+                "images/sec".format(name, " / ".join(
+                    "{:.3f}".format(t) for t in times[name]),
+                    256e3 / statistics.mean(times[name])))
+        for name in impls:
+            burgess.set_final_convt_impl(impls[name])
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                for i in range(10):
+                    step(states[name], wire.index_select(0, idx[i]))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            busy, top = _device_profile(prof)
+            if busy == 0:
+                log("profile {}: the profiler saw no device events (device "
+                    "time not measured)".format(name))
+                continue
+            log("profile {} (10 steps, profiler on): wall {:.2f} ms, device "
+                "busy {:.2f} ms, idle share {:.1%}".format(
+                    name, wall * 1e3, busy * 1e3, 1 - busy / wall))
+            for k, ms, n in top[:12]:
+                log("  {:9.3f} ms {:5d} calls  {}".format(ms, n, k[:110]))
+    finally:
+        burgess.set_final_convt_impl(burgess.conv_transpose2d)
+        configure("highest")
+
+
+def phase_factor(C, scratch):
+    """FactorVAE through the CLI on the same subset: b128 and 1 epoch,
+    doubled by the CLI to b256 and 2 epochs; K1/K2 on the half batch."""
+    from disvae_tpu_torch import cli
+    from disvae_tpu_torch.models import burgess
+    from disvae_tpu_torch.ops.precision import configure
+    from disvae_tpu_torch.utils.modelIO import load_metadata
+
+    name = "chip_smoke_factor_celeba"
+    burgess.set_final_convt_impl(C.conv_transpose2d_pl)
+    try:
+        C.convt3_dw.launches = C.convt3_dx.launches = 0
+        trainer, _, seconds = _cli_run(cli, scratch, [
+            name, "-d", "celeba", "-l", "factor", "--factor-G", "6.4",
+            "--lr", "1e-4", "--lr-disc", "1e-5", "-b", "128", "-e", "1",
+            "--precision", "default", "--no-viz-gif", "--no-progress-bar",
+            "-s", str(SEED)])
+        launches = (C.convt3_dw.launches, C.convt3_dx.launches)
+    finally:
+        burgess.set_final_convt_impl(burgess.conv_transpose2d)
+        configure("highest")
+    exp_dir = os.path.join(scratch, cli.RES_DIR, name)
+    log("factor CLI (celeba, b128 -> b256, 2 epochs): {:.1f} s, {} steps, "
+        "K1 launches {}, K2 launches {}; epochs {}".format(
+            seconds, trainer.state.step, *launches, ", ".join(
+                "{:.4f} loss at {:.0f} images/sec".format(
+                    e["loss"], e["images_per_sec"])
+                for e in trainer.epoch_stats)))
+    if min(launches) <= 0:
+        raise AssertionError("the factor run never launched K1/K2")
+    rows = _read_log(exp_dir)
+    keys = {r[1] for r in rows}
+    if not {"loss", "tc_loss", "discrim_loss"} <= keys \
+            or not all(math.isfinite(float(r[2])) for r in rows):
+        raise AssertionError("factor train_losses.log: {}".format(keys))
+    losses = load_metadata(exp_dir, filename="test_losses.log")
+    if not all(math.isfinite(v) for v in losses.values()):
+        raise AssertionError("non-finite factor test losses")
+    last = {r[1]: r[2] for r in rows if r[0] == "1"}
+    log("factor train_losses.log, epoch 1: loss {loss}, tc_loss {tc_loss}, "
+        "discrim_loss {discrim_loss}".format(**last))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
+    from disvae_tpu_torch.ops import convt_bwd as C
     from disvae_tpu_torch.ops import log_qz as K
 
     phase_device()
-    phase_build(K)
+    phase_build({"log_qz": K, "convt3_bwd": C})
     record = phase_kernels(K)
+    convt = phase_convt_kernels(C)
     build_dir = os.path.join(REPO, "build")
     os.makedirs(build_dir, exist_ok=True)
     scratch = tempfile.mkdtemp(prefix="chip_smoke_", dir=build_dir)
     try:
         exp_dir, datasets, launches = phase_main_path(K, scratch)
         phase_serving(exp_dir, datasets)
+        dw_launches, dx_launches = phase_train(C, scratch)
+        phase_ab(C, datasets)
+        phase_factor(C, scratch)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
-    log(json.dumps({"kernels": [dict(
-        name="log_qz", route="cuda",
-        source="disvae_tpu_torch/csrc/log_qz.cu",
-        replaces="disvae_tpu/ops/pallas_kernels.py:44",
-        launches=launches, max_abs_err=record["max_abs_err"],
-        ms=record["ms"], plain_ms=record["plain_ms"])]}))
+    convt_src = "disvae_tpu_torch/csrc/convt3_bwd.cu"
+    log(json.dumps({"kernels": [
+        dict(name="log_qz", route="cuda",
+             source="disvae_tpu_torch/csrc/log_qz.cu",
+             replaces="disvae_tpu/ops/pallas_kernels.py:44",
+             launches=launches, max_abs_err=record["max_abs_err"],
+             ms=record["ms"], plain_ms=record["plain_ms"]),
+        dict(name="convt3_dw", route="cuda", source=convt_src,
+             replaces="disvae_tpu/ops/pallas_convt_bwd.py:71",
+             launches=dw_launches, **convt["convt3_dw"]),
+        dict(name="convt3_dx", route="cuda", source=convt_src,
+             replaces="disvae_tpu/ops/pallas_convt_bwd.py:108",
+             launches=dx_launches, **convt["convt3_dx"])]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

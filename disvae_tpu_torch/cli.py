@@ -1,22 +1,28 @@
-"""Evaluate disentangled VAEs with PyTorch on a CUDA GPU.
+"""Train and evaluate disentangled VAEs with PyTorch on a CUDA GPU.
 
 `python -m disvae_tpu_torch <name> ...`: the parser and flags of
 disvae_tpu/cli.py (option groups, experiment names, the `-x` INI layering
 Common_<dataset> -> Common_<loss> -> [<loss>_<dataset>] over the defaults
-of disvae_tpu/hyperparam.ini) and its evaluation branch: load
-`results/<name>/`, write `test_losses.log` and, with `--is-metrics`,
-`metrics.log` + `metric_helpers.pth`.
+of disvae_tpu/hyperparam.ini; a named experiment's INI values win over
+explicit flags, e.g. `-x btcvae_celeba` trains 200 epochs whatever `-e`
+says) and both branches:
 
-Training is not ported yet: without `--is-eval-only` the CLI raises
-NotImplementedError (ROADMAP.md, Queue 1). So do the flags whose paths
-wait for later slices (`--fast-metrics`, `--resident-data always`,
-`--model-parallel` > 1).
+* training (without `--is-eval-only`): a fresh (or, with `--resume`,
+  reused) `results/<name>/`, a seeded loader and init, the Trainer
+  (train_losses.log, model-<e>.pt, train_state.pt), then `model.pt` and
+  `specs.json` with every resolved flag;
+* evaluation: `test_losses.log` and, with `--is-metrics`, `metrics.log` +
+  `metric_helpers.pth`.
+
+The flags whose paths wait for later slices raise NotImplementedError
+naming ROADMAP.md: `--fast-metrics`, `--model-parallel` > 1, and training
+without `--no-viz-gif` (the per-epoch gif needs the visualization slice).
 
 The device is CUDA unless `--no-cuda` asks for the CPU; without a GPU
 and without `--no-cuda` the CLI raises rather than run on the CPU. The
-MIG/AAM sample draws are seeded with `--seed` (the JAX CLI derives its
-own from a PRNG key, so the two CLIs' estimates differ by Monte Carlo
-noise; the Evaluators agree exactly at equal `metrics_seed`).
+init, the training noise and the MIG/AAM sample draws are seeded from
+`--seed` (the JAX CLI splits a PRNG key instead, so the two CLIs draw
+different numbers from one seed).
 """
 
 import argparse
@@ -27,15 +33,20 @@ import time
 
 import torch
 
-from disvae_tpu_torch.data.datasets import DATASETS, get_dataloaders
-from disvae_tpu_torch.models.vae import MODELS
+from disvae_tpu_torch.data.datasets import (DATASETS, get_dataloaders,
+                                            get_img_size)
+from disvae_tpu_torch.models.vae import MODELS, init_specific_model
 from disvae_tpu_torch.ops.losses import LOSSES, RECON_DIST, get_loss_f
 from disvae_tpu_torch.ops.precision import PRECISIONS, configure
 from disvae_tpu_torch.train.evaluate import Evaluator
+from disvae_tpu_torch.train.trainer import Trainer
 from disvae_tpu_torch.utils.helpers import (FormatterNoDuplicate,
-                                            get_config_section, set_seed,
+                                            create_safe_directory,
+                                            derive_seeds, get_config_section,
+                                            get_n_param, set_seed,
                                             update_namespace_)
-from disvae_tpu_torch.utils.modelIO import load_metadata, load_model
+from disvae_tpu_torch.utils.modelIO import (load_metadata, load_model,
+                                            save_model)
 
 # The experiment config is the JAX package's file, read (not imported).
 CONFIG_FILE = os.path.join(
@@ -47,8 +58,8 @@ ADDITIONAL_EXP = ["custom", "debug", "best_celeba", "best_dsprites"]
 EXPERIMENTS = ADDITIONAL_EXP + ["{}_{}".format(loss, data)
                                 for loss in LOSSES
                                 for data in DATASETS]
-_TRAINING = "Training is not ported yet (ROADMAP.md, Queue 1: the training " \
-            "slice); run with --is-eval-only."
+_GIF = ("The per-epoch training gif is not ported yet (ROADMAP.md, Queue 2: "
+        "visualization); train with --no-viz-gif.")
 
 
 def parse_arguments(args_to_parse):
@@ -82,14 +93,14 @@ def parse_arguments(args_to_parse):
                          help='float32 matmul/conv policy: highest (TF32 '
                               'off), high (TF32), default (bf16 autocast).')
     general.add_argument('--resume', action='store_true', default=False,
-                         help='Resume training (training is not ported '
-                              'yet).')
+                         help='Resume training from results/<name>/'
+                              'train_state.pt.')
     general.add_argument('--profile', action='store_true', default=False,
-                         help='Profile the training run (training is not '
-                              'ported yet).')
+                         help='Write a torch.profiler chrome trace of the '
+                              'training run to results/<name>/profile/.')
     general.add_argument('--debug-nans', action='store_true', default=False,
-                         help='Error out on the first NaN (training is not '
-                              'ported yet).')
+                         help='Error out on the first NaN in a backward '
+                              '(autograd anomaly detection).')
     general.add_argument('--model-parallel', type=int, default=1,
                          help='Devices per tensor-parallel group (not '
                               'ported yet; only 1 is accepted).')
@@ -97,12 +108,13 @@ def parse_arguments(args_to_parse):
                          help='Run single-device (the port always does).')
     general.add_argument('--resident-data', default='auto',
                          choices=['auto', 'always', 'never'],
-                         help='Device-resident dataset feed. Not ported '
-                              'yet: "auto" and "never" stream batches; '
-                              '"always" raises.')
+                         help='Device-resident training feed: "auto" '
+                              'when the wire-format dataset fits the '
+                              'budget, "always", or "never" (stream '
+                              'batches). Evaluation streams.')
     general.add_argument('--no-viz-gif', action='store_true', default=False,
-                         help='Skip the per-epoch traversal gif (training '
-                              'is not ported yet).')
+                         help='Skip the per-epoch traversal gif (not '
+                              'ported yet: training requires this flag).')
 
     training = parser.add_argument_group('Training specific options')
     training.add_argument('--checkpoint-every', type=int,
@@ -233,9 +245,11 @@ def _device(args):
 
 
 def main(args):
-    """Run the CLI. Returns the Evaluator it ran (its
-    `last_metrics_timings` hold the encode/entropy phase seconds), or None
-    when neither test losses nor metrics were asked for."""
+    """Run the CLI. Returns (trainer, evaluator): the Trainer that ran
+    (None with --is-eval-only; its `epoch_stats` hold each epoch's mean
+    loss and images/sec) and the Evaluator (None when neither test losses
+    nor metrics were asked for; its `last_metrics_timings` hold the
+    encode/entropy phase seconds)."""
     formatter = logging.Formatter(
         '%(asctime)s %(levelname)s - %(funcName)s: %(message)s', "%H:%M:%S")
     logger = logging.getLogger(__name__)
@@ -245,27 +259,86 @@ def main(args):
     stream.setFormatter(formatter)
     logger.addHandler(stream)
 
-    if not args.is_eval_only:
-        raise NotImplementedError(_TRAINING)
+    if not args.is_eval_only and not args.no_viz_gif:
+        raise NotImplementedError(_GIF)
     if args.fast_metrics:
         raise NotImplementedError("--fast-metrics is not ported yet "
-                                  "(ROADMAP.md, Queue 1).")
-    if args.resident_data == "always":
-        raise NotImplementedError("The device-resident feed is not ported "
-                                  "yet (ROADMAP.md, Queue 1).")
+                                  "(ROADMAP.md, Queue 2).")
     if args.model_parallel != 1:
         raise NotImplementedError("--model-parallel is not ported yet "
-                                  "(ROADMAP.md, Queue 1).")
+                                  "(ROADMAP.md, Queue 2).")
 
     configure(args.precision)
     device = _device(args)
+    if args.debug_nans:
+        torch.autograd.set_detect_anomaly(True)
     set_seed(args.seed)
     metrics_seed = (args.seed if args.seed is not None
                     else int(time.time()) & 0x7FFFFFFF)
+    init_seed, train_seed = derive_seeds(args.seed, 2)
 
     exp_dir = os.path.join(RES_DIR, args.name)
     logger.info("Root directory for saving and loading experiments: {}"
                 .format(exp_dir))
+
+    trainer = evaluator = None
+    if not args.is_eval_only:
+        if args.resume:
+            os.makedirs(exp_dir, exist_ok=True)
+        else:
+            create_safe_directory(exp_dir, logger=logger)
+
+        if args.loss == "factor":
+            logger.info("FactorVAE consumes two half-batches per iteration; "
+                        "doubling batch size and epoch count so each epoch "
+                        "sees the dataset the same number of times.")
+            args.batch_size *= 2
+            args.epochs *= 2
+
+        train_loader = get_dataloaders(args.dataset,
+                                       batch_size=args.batch_size,
+                                       logger=logger, seed=args.seed)
+        logger.info("Train {} with {} samples".format(
+            args.dataset, len(train_loader.dataset)))
+
+        args.img_size = get_img_size(args.dataset)
+        model = init_specific_model(
+            args.model_type, args.img_size, args.latent_dim,
+            generator=torch.Generator().manual_seed(init_seed),
+            device=device)
+        logger.info('Num parameters in model: {}'.format(get_n_param(model)))
+        loss_f = get_loss_f(args.loss,
+                            n_data=len(train_loader.dataset),
+                            device=device,
+                            **vars(args))
+        trainer = Trainer(model, loss_f, lr=args.lr,
+                          seed=train_seed,
+                          logger=logger,
+                          save_dir=exp_dir,
+                          is_progress_bar=not args.no_progress_bar,
+                          resident=args.resident_data,
+                          resume=args.resume,
+                          skip_tiny_tail=True)
+        if args.profile:
+            profile_dir = os.path.join(exp_dir, "profile")
+            os.makedirs(profile_dir, exist_ok=True)
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            with torch.profiler.profile(activities=activities) as prof:
+                trainer(train_loader,
+                        epochs=args.epochs,
+                        checkpoint_every=args.checkpoint_every)
+            path = os.path.join(profile_dir, "trace.json")
+            prof.export_chrome_trace(path)
+            logger.info("Profiler trace written to {}".format(path))
+        else:
+            trainer(train_loader,
+                    epochs=args.epochs,
+                    checkpoint_every=args.checkpoint_every)
+
+        # the final model plus the full resolved config
+        save_model(trainer.model, exp_dir, metadata=vars(args))
 
     if args.is_metrics or not args.no_test:
         model = load_model(exp_dir, device=device)
@@ -285,8 +358,7 @@ def main(args):
                               metrics_seed=metrics_seed)
         evaluator(test_loader, is_metrics=args.is_metrics,
                   is_losses=not args.no_test)
-        return evaluator
-    return None
+    return trainer, evaluator
 
 
 def cli():

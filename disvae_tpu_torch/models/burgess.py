@@ -39,6 +39,27 @@ def _convT(cin, cout):
     return nn.ConvTranspose2d(cin, cout, KERNEL, stride=2, padding=1)
 
 
+def conv_transpose2d(x, w, b):
+    """The k4 s2 p1 transposed conv of every decoder layer, as
+    nn.ConvTranspose2d computes it."""
+    return F.conv_transpose2d(x, w, b, stride=2, padding=1)
+
+
+# Implementation of the FINAL transposed conv only (Cout = n_chan <= 3;
+# disvae_tpu/models/burgess.py:112-125). The forward is the same either way;
+# ops/convt_bwd.py `conv_transpose2d_pl` swaps in the K1/K2 backward kernels,
+# which run under the ``default`` precision policy. One implementation per
+# process, chosen before training.
+_convT_final = conv_transpose2d
+
+
+def set_final_convt_impl(fn):
+    """A/B hook: replace the final decoder convT implementation, a callable
+    (x, w, b) -> y (e.g. ops.convt_bwd.conv_transpose2d_pl)."""
+    global _convT_final
+    _convT_final = fn
+
+
 class Encoder(nn.Module):
     """x (N, H, W, C) -> (mu, logvar), each (N, latent_dim) float32."""
 
@@ -95,5 +116,6 @@ class Decoder(nn.Module):
             h = F.relu(self.convT_64(h))
         h = F.relu(self.convT1(h))
         h = F.relu(self.convT2(h))
-        h = torch.sigmoid(self.convT3(h).float())
+        h = _convT_final(h, self.convT3.weight, self.convT3.bias)
+        h = torch.sigmoid(h.float())
         return h.permute(0, 2, 3, 1)  # NCHW -> NHWC

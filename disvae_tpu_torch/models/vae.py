@@ -2,9 +2,9 @@
 
 forward -> (reconstruction, (mu, logvar), latent_sample). `reparameterize`
 returns the mean in eval mode and mu + sigma * eps in train mode, with eps
-drawn from an explicit `torch.Generator`. Under the ``default`` precision
-policy the encoder and decoder run in bf16 autocast; their outputs are
-float32 either way (ops/precision.py).
+given (pinned noise) or drawn from an explicit `torch.Generator`. Under
+the ``default`` precision policy the encoder and decoder run in bf16
+autocast; their outputs are float32 either way (ops/precision.py).
 """
 
 import torch
@@ -52,19 +52,21 @@ class VAE(nn.Module):
         with precision.autocast(z.device.type):
             return self.decoder(z)
 
-    def reparameterize(self, mean, logvar, generator=None):
-        """Train: mean + exp(logvar / 2) * eps; eval: mean."""
+    def reparameterize(self, mean, logvar, generator=None, eps=None):
+        """Train: mean + exp(logvar / 2) * eps, with eps given or drawn from
+        `generator`; eval: mean."""
         if not self.training:
             return mean
-        eps = torch.randn(mean.shape, generator=generator, dtype=mean.dtype,
-                          device=mean.device)
+        if eps is None:
+            eps = torch.randn(mean.shape, generator=generator,
+                              dtype=mean.dtype, device=mean.device)
         return mean + torch.exp(0.5 * logvar) * eps
 
-    def forward(self, x, generator=None):
+    def forward(self, x, generator=None, eps=None):
         mean, logvar = self.encode(x)
-        z = self.reparameterize(mean, logvar, generator)
+        z = self.reparameterize(mean, logvar, generator, eps)
         return self.decode(z), (mean, logvar), z
 
-    def sample_latent(self, x, generator=None):
+    def sample_latent(self, x, generator=None, eps=None):
         mean, logvar = self.encode(x)
-        return self.reparameterize(mean, logvar, generator)
+        return self.reparameterize(mean, logvar, generator, eps)

@@ -16,38 +16,25 @@ disvae_tpu/train/evaluate.py `_streaming_log_qz`. Three pieces live here:
 * the hand-written CUDA kernel in `disvae_tpu_torch/csrc/log_qz.cu` (its
   header says what bounds it on Hopper and what the design does about it),
   built with nvcc into a plain-C shared library at first use and loaded with
-  ctypes;
+  ctypes (ops/cuda_build.py);
 * `log_qz` — the wrapper. It takes the plain version only for CPU tensors.
   For CUDA tensors it launches the kernel or raises; nothing falls back.
   `log_qz.launches` counts its kernel launches.
 """
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import threading
 
 import torch
 
+from disvae_tpu_torch.ops import cuda_build
 from disvae_tpu_torch.ops.math import log_density_gaussian
 
 # Component chunk of the plain version's (L, chunk, D, S) density brick, as
 # in the JAX evaluator (evaluate.py _COMP_CHUNK, scaled down with L).
 _COMP_CHUNK = 2048
 
-_SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "csrc", "log_qz.cu")
-# build/ at the repository root (listed in .gitignore)
-BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "build", "disvae_tpu_torch")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-
-_lock = threading.Lock()
-_lib = None
+_NAME = "log_qz"
 
 
 def log_qz_plain(values, mu, logvar, comp_chunk=None):
@@ -72,55 +59,18 @@ def log_qz_plain(values, mu, logvar, comp_chunk=None):
     return torch.log(run_sum) + run_max
 
 
-def _nvcc():
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    path = shutil.which("nvcc")
-    if path is None:
-        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, "
-                           "/usr/local/cuda/bin and PATH): the log_qz CUDA "
-                           "kernel cannot be built.")
-    return path
-
-
 def build():
-    """Compile csrc/log_qz.cu into BUILD_DIR unless a library built from
-    the same source and flags is there already. Returns (path, compiler
+    """Compile csrc/log_qz.cu (ops/cuda_build.py). Returns (path, compiler
     output); the output is empty when nothing was compiled."""
-    with open(_SOURCE, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
-    path = os.path.join(BUILD_DIR, "liblog_qz-{}.so".format(
-        digest.hexdigest()[:12]))
-    if os.path.exists(path):
-        return path, ""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = "{}.{}.tmp".format(path, os.getpid())
-    proc = subprocess.run([_nvcc()] + NVCC_FLAGS + ["-o", tmp, _SOURCE],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed ({}):\n{}{}".format(
-            proc.returncode, proc.stdout, proc.stderr))
-    os.replace(tmp, path)
-    return path, proc.stdout + proc.stderr
+    return cuda_build.build(_NAME)
 
 
-def _library():
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build()[0])
-            lib.disvae_log_qz_f32.argtypes = (
-                [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                + [ctypes.c_void_p])
-            lib.disvae_log_qz_f32.restype = ctypes.c_int
-            lib.disvae_log_qz_n_split.argtypes = [ctypes.c_int] * 5
-            lib.disvae_log_qz_n_split.restype = ctypes.c_int
-            lib.disvae_cuda_error_string.argtypes = [ctypes.c_int]
-            lib.disvae_cuda_error_string.restype = ctypes.c_char_p
-            _lib = lib
-        return _lib
+def _declare(lib):
+    lib.disvae_log_qz_f32.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    lib.disvae_log_qz_f32.restype = ctypes.c_int
+    lib.disvae_log_qz_n_split.argtypes = [ctypes.c_int] * 5
+    lib.disvae_log_qz_n_split.restype = ctypes.c_int
 
 
 def _check(values, mu, logvar):
@@ -160,7 +110,7 @@ def log_qz(values, mu, logvar):
     if L * D > 65535 or L * D * S >= 2 ** 31 or M >= 2 ** 31:
         raise ValueError("log_qz: (L, M, D, S) = {} exceeds the launch "
                          "geometry".format((L, M, D, S)))
-    lib = _library()
+    lib = cuda_build.library(_NAME, _declare)
     with torch.cuda.device(values.device):
         sm_count = torch.cuda.get_device_properties(
             values.device).multi_processor_count
@@ -174,9 +124,7 @@ def log_qz(values, mu, logvar):
             values.data_ptr(), mu.data_ptr(), logvar.data_ptr(),
             out.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
             L, M, D, S, n_split, stream)
-    if err != 0:
-        raise RuntimeError("log_qz kernel launch failed: {} ({})".format(
-            lib.disvae_cuda_error_string(err).decode(), err))
+    cuda_build.check(lib, err, "log_qz")
     log_qz.launches += 1
     return out
 

@@ -1,17 +1,18 @@
-"""The VAE losses' forward, in PyTorch (disvae_tpu/ops/losses.py).
+"""The VAE losses in PyTorch (disvae_tpu/ops/losses.py).
 
 Every loss returns ``(loss, metrics_dict)`` with the JAX package's keys.
-Data and reconstructions are NHWC float32 in [0, 1]. This slice serves
-evaluation, so the losses run forward only; `is_train`/`step` keep their
-meaning (annealing) so the signatures match the JAX package. FactorVAE
-(adversarial, needs the discriminator and its train step) comes with the
-training slice: ROADMAP.md, Queue 1 item 2.
+Data and reconstructions are NHWC float32 in [0, 1]; `step` is the train
+step counter (incremented before use) that drives annealing. FactorVAE
+trains two parameter sets on a batch split in half: `factor_surrogate`
+is the one scalar whose backward gives both the reference's updates, and
+`FactorKLoss.eval_losses` its evaluation pieces.
 """
 
 from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+from torch.func import functional_call
 
 from disvae_tpu_torch.ops.math import (log_density_gaussian,
                                        log_importance_weight_matrix,
@@ -19,6 +20,10 @@ from disvae_tpu_torch.ops.math import (log_density_gaussian,
 
 LOSSES = ["VAE", "betaH", "betaB", "factor", "btcvae"]
 RECON_DIST = ["bernoulli", "laplace", "gaussian"]
+
+# The reference's BaseLoss(record_loss_every=50): sub-losses are recorded
+# when step % 50 == 1, the step counter being incremented before the check.
+RECORD_LOSS_EVERY = 50
 
 
 def get_loss_f(loss_name, **kwargs_parse):
@@ -36,9 +41,10 @@ def get_loss_f(loss_name, **kwargs_parse):
                          gamma=kwargs_parse["betaB_G"],
                          **kwargs_all)
     elif loss_name == "factor":
-        raise NotImplementedError(
-            "The FactorVAE loss is not ported yet: it arrives with the "
-            "training slice (ROADMAP.md, Queue 1 item 2).")
+        return FactorKLoss(gamma=kwargs_parse["factor_G"],
+                           latent_dim=kwargs_parse["latent_dim"],
+                           lr_disc=kwargs_parse["lr_disc"],
+                           **kwargs_all)
     elif loss_name == "btcvae":
         return BtcvaeLoss(n_data=kwargs_parse["n_data"],
                           alpha=kwargs_parse["btcvae_A"],
@@ -123,6 +129,7 @@ class BetaHLoss:
     steps_anneal: int = 0
 
     name = "betaH"
+    needs_discriminator = False
     coef_names = ("beta",)
 
     def __call__(self, data, recon_data, latent_dist, is_train, step,
@@ -148,6 +155,7 @@ class BetaBLoss:
     steps_anneal: int = 0
 
     name = "betaB"
+    needs_discriminator = False
     coef_names = ("C_init", "C_fin", "gamma")
 
     def __call__(self, data, recon_data, latent_dist, is_train, step,
@@ -177,6 +185,7 @@ class BtcvaeLoss:
     steps_anneal: int = 0
 
     name = "btcvae"
+    needs_discriminator = False
     coef_names = ("alpha", "beta", "gamma")
 
     def __call__(self, data, recon_data, latent_dist, is_train, step,
@@ -199,6 +208,106 @@ class BtcvaeLoss:
         metrics.update(recon_loss=rec_loss, loss=loss, mi_loss=mi_loss,
                        tc_loss=tc_loss, dw_kl_loss=dw_kl_loss)
         return loss, metrics
+
+
+@dataclass(frozen=True)
+class FactorKLoss:
+    """FactorVAE adversarial total-correlation loss (Kim & Mnih 2018,
+    Alg. 2; disvae_tpu losses.py:315-350). Training goes through
+    `factor_surrogate` and the factor train step; this config carries the
+    discriminator's hyperparameters."""
+    gamma: float = 10.0
+    latent_dim: int = 10
+    lr_disc: float = 5e-5
+    disc_betas: tuple = (0.5, 0.9)
+    rec_dist: str = "bernoulli"
+    steps_anneal: int = 0
+
+    name = "factor"
+    needs_discriminator = True
+    coef_names = ("gamma",)
+
+    def __call__(self, *args, **kwargs):
+        raise ValueError("Use the factor train/eval step to also train the "
+                         "discriminator")
+
+    def eval_losses(self, data, recon_data, latent_dist, d_z, is_train, step,
+                    coefs=None):
+        """Evaluation loss pieces (no updates), as the reference stores them
+        when the model is not training (losses.py:254-278)."""
+        gamma = self.gamma if coefs is None else coefs[0]
+        rec_loss = reconstruction_loss(data, recon_data, self.rec_dist)
+        kl_loss, metrics = _kl_metrics(*latent_dist)
+        tc_loss = torch.mean(d_z[:, 0] - d_z[:, 1])
+        anneal_reg = (linear_annealing(0, 1, step, self.steps_anneal)
+                      if is_train else 1.0)
+        vae_loss = rec_loss + kl_loss + anneal_reg * gamma * tc_loss
+        metrics.update(recon_loss=rec_loss, loss=vae_loss, tc_loss=tc_loss)
+        return vae_loss, metrics
+
+
+def permute_dims(latent_sample, perm):
+    """Permute each latent dimension independently across the batch:
+    out[i, d] = latent_sample[perm[i, d], d] (reference losses.py:483-508).
+    `perm` (B, D) holds one permutation of the batch per column."""
+    return torch.gather(latent_sample, 0, perm)
+
+
+def draw_permutations(shape, generator=None, device=None):
+    """(B, D) independent batch permutations, as the JAX package draws
+    them: argsort of uniform noise along the batch axis."""
+    noise = torch.rand(shape, generator=generator, device=device)
+    return torch.argsort(noise, dim=0)
+
+
+def softmax_cross_entropy(logits, labels):
+    """Mean cross entropy with integer labels (F.cross_entropy)."""
+    logp = F.log_softmax(logits, dim=-1)
+    return -torch.mean(torch.gather(logp, 1, labels[:, None])[:, 0])
+
+
+def factor_surrogate(loss_cfg, model, disc, data, step, eps1, eps2, perm,
+                     is_train=True, coefs=None):
+    """One scalar whose backward gives the reference's two updates
+    (disvae_tpu losses.py:378-446; reference losses.py:243-313).
+
+    The VAE receives grad(vae_loss) + grad(d_tc_loss), since d_tc_loss's
+    backward flows through D(z1) into the encoder; the discriminator
+    receives grad(d_tc_loss) only. So `vae_loss` sees the discriminator's
+    parameters detached (a functional call on detached tensors),
+    `d_tc_loss` sees them live, and z_perm is detached.
+
+    The batch splits as the reference's `data.split(half)`: data1 = rows
+    [0, half), data2 = rows [half, 2 half); an odd trailing row is dropped.
+    eps1 / eps2 (half, D) are the reparameterization noise of the two
+    halves and `perm` (half, D) the permutations of z2's dimensions.
+    Returns (surrogate, metrics)."""
+    half = data.shape[0] // 2
+    data1 = data[:half]
+    data2 = data[half:2 * half]
+
+    recon, latent_dist, z1 = model(data1, eps=eps1)
+    rec_loss = reconstruction_loss(data1, recon, loss_cfg.rec_dist)
+    kl_loss, metrics = _kl_metrics(*latent_dist)
+
+    detached = {k: v.detach() for k, v in disc.named_parameters()}
+    d_z_for_vae = functional_call(disc, detached, (z1,))
+    tc_loss = torch.mean(d_z_for_vae[:, 0] - d_z_for_vae[:, 1])
+    anneal_reg = (linear_annealing(0, 1, step, loss_cfg.steps_anneal)
+                  if is_train else 1.0)
+    gamma = loss_cfg.gamma if coefs is None else coefs[0]
+    vae_loss = rec_loss + kl_loss + anneal_reg * gamma * tc_loss
+
+    # discriminator loss: real z1 against the detached permuted z2
+    z2 = model.sample_latent(data2, eps=eps2)
+    z_perm = permute_dims(z2, perm).detach()
+    zeros = torch.zeros(half, dtype=torch.long, device=data.device)
+    d_tc_loss = 0.5 * (softmax_cross_entropy(disc(z1), zeros)
+                       + softmax_cross_entropy(disc(z_perm), zeros + 1))
+
+    metrics.update(recon_loss=rec_loss, loss=vae_loss, tc_loss=tc_loss,
+                   discrim_loss=d_tc_loss)
+    return vae_loss + d_tc_loss, metrics
 
 
 def _log_pz_qz_prodzi_qzCx(latent_sample, latent_dist, n_data, is_mss=True):

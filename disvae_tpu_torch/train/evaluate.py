@@ -10,6 +10,7 @@ Reference quirks kept, as in the JAX package:
 * `compute_losses` returns inside the first batch iteration, so "test
   losses" are first-batch values divided by the number of batches.
 * In eval mode latent "samples" are the posterior means.
+* FactorVAE test losses use a freshly initialized discriminator.
 * The entropy samples are reshaped (S, D) -> (D, S) without a transpose
   (`scramble_quirk=True`, the default); MIG only matches the reference
   with it. `scramble_quirk=False` takes the transpose.
@@ -29,6 +30,7 @@ from timeit import default_timer
 import numpy as np
 import torch
 
+from disvae_tpu_torch.models.discriminator import Discriminator
 from disvae_tpu_torch.ops.log_qz import log_qz
 from disvae_tpu_torch.ops.losses import coef_vector
 from disvae_tpu_torch.train.steps import _decompress_batch, make_eval_step
@@ -58,7 +60,17 @@ class Evaluator:
         self.scramble_quirk = scramble_quirk
         self._np_rng = np.random.RandomState(
             0 if metrics_seed is None else metrics_seed)
-        self._eval_step = make_eval_step(model, loss_f)
+        disc = None
+        if loss_f.needs_discriminator:
+            # FactorVAE test losses use a freshly initialized
+            # discriminator: the reference rebuilds the loss for the eval
+            # phase and never keeps the trained one (main.py:237-240)
+            disc = Discriminator(latent_dim=loss_f.latent_dim,
+                                 generator=torch.Generator().manual_seed(
+                                     0 if metrics_seed is None
+                                     else metrics_seed))
+            disc = disc.to(self.device).eval()
+        self._eval_step = make_eval_step(model, loss_f, disc=disc)
         self._loss_coefs = coef_vector(loss_f, device=self.device)
         self.logger.info("Testing Device: {}".format(self.device))
 

@@ -3,7 +3,8 @@
 Copied from disvae_tpu/utils/helpers.py (numpy/stdlib only; importing it
 from the JAX package would load JAX through disvae_tpu/__init__.py).
 `set_seed` seeds numpy and `random` as the JAX package does and returns a
-seeded `torch.Generator` in place of a JAX PRNG key.
+seeded `torch.Generator` in place of a JAX PRNG key; `derive_seeds` stands
+in for splitting a key.
 """
 
 import argparse
@@ -48,6 +49,19 @@ def create_safe_directory(directory, logger=None):
         shutil.make_archive(directory, "zip", directory)
         shutil.rmtree(directory)
     os.makedirs(directory)
+
+
+def derive_seeds(seed, n):
+    """`n` independent seeds derived from `seed` (fresh entropy when it is
+    None): the port's counterpart of splitting a JAX PRNG key."""
+    return [int(s) for s in
+            np.random.SeedSequence(seed).generate_state(n, np.uint64)
+            >> np.uint64(1)]
+
+
+def get_n_param(model):
+    """Number of trainable parameters of an nn.Module."""
+    return sum(p.numel() for p in model.parameters() if p.requires_grad)
 
 
 def set_seed(seed, device="cpu"):

@@ -8,6 +8,9 @@ with per-layer {"w", "b"}; the port holds a reference-layout state dict.
   * Conv2d:          JAX HWIO                  <-> torch OIHW
   * ConvTranspose2d: JAX HWIO kernel of the equivalent input-dilated forward
     conv <-> torch (in, out, kh, kw): transpose plus a spatial flip.
+
+The FactorVAE discriminator's params ({"lin1": {"w", "b"}, ...}) cross
+with `disc_from_jax_params` / `disc_to_jax_params`.
 """
 
 import numpy as np
@@ -74,3 +77,23 @@ def to_jax_params(state_dict):
             dec[k] = {"w": np.ascontiguousarray(np.transpose(w, (2, 3, 0, 1))),
                       "b": np.ascontiguousarray(sd[prefix + ".bias"])}
     return {"encoder": enc, "decoder": dec}
+
+
+def disc_from_jax_params(params):
+    """JAX FactorVAE discriminator params {"lin<i>": {"w", "b"}} -> the
+    port's `Discriminator` state dict."""
+    sd = {}
+    for k, p in params.items():
+        sd[k + ".weight"] = _tensor(np.asarray(p["w"]).T)
+        sd[k + ".bias"] = _tensor(p["b"])
+    return sd
+
+
+def disc_to_jax_params(state_dict):
+    """The port's `Discriminator` state dict -> JAX params of numpy
+    arrays."""
+    sd = {k: v.detach().cpu().numpy() for k, v in state_dict.items()}
+    return {k[:-len(".weight")]: {
+        "w": np.ascontiguousarray(v.T),
+        "b": np.ascontiguousarray(sd[k[:-len(".weight")] + ".bias"])}
+        for k, v in sd.items() if k.endswith(".weight")}

@@ -211,7 +211,7 @@ def test_cli_eval_only_matches_jax_cli(tmp_path, monkeypatch):
 def test_cli_refuses_paths_not_ported(tmp_path, monkeypatch, flags):
     monkeypatch.chdir(tmp_path)
     if not flags:
-        flags = []  # training
+        flags = []  # training without --no-viz-gif (the gif)
     else:
         flags = ["--is-eval-only"] + flags
     with pytest.raises(NotImplementedError, match="ROADMAP"):

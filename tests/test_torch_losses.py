@@ -78,7 +78,7 @@ def test_eval_loss_dicts_match_jax(loss, rec_dist, saturated):
 
 
 def test_coefs_and_key_order_match_jax():
-    for loss in ["VAE", "betaH", "betaB", "btcvae"]:
+    for loss in ["VAE", "betaH", "betaB", "factor", "btcvae"]:
         j = JL.get_loss_f(loss, **KWARGS)
         p = PL.get_loss_f(loss, **KWARGS)
         np.testing.assert_array_equal(PL.coef_vector(p).numpy(),
@@ -88,8 +88,23 @@ def test_coefs_and_key_order_match_jax():
 
 
 def test_factor_loss_is_not_silently_substituted():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PL.get_loss_f("factor", **KWARGS)
+    """get_loss_f("factor") is the FactorVAE loss with the JAX config; it is
+    trained only through the factor step (a direct call raises), and its
+    eval pieces match the JAX package's on the same discriminator logits."""
+    j, p = JL.get_loss_f("factor", **KWARGS), PL.get_loss_f("factor", **KWARGS)
+    assert type(p).__name__ == "FactorKLoss" and p.needs_discriminator
+    assert (p.gamma, p.latent_dim, p.lr_disc, tuple(p.disc_betas)) == (
+        j.gamma, j.latent_dim, j.lr_disc, tuple(j.disc_betas))
+    data, recon, mu, logvar = _batch(3)
+    with pytest.raises(ValueError, match="factor train"):
+        p(torch.from_numpy(data), torch.from_numpy(recon), None, True, 1)
+    d_z = np.random.RandomState(4).randn(16, 2).astype(np.float32)
+    _, j_metrics = j.eval_losses(jnp.asarray(data), jnp.asarray(recon),
+                                 (jnp.asarray(mu), jnp.asarray(logvar)),
+                                 jnp.asarray(d_z), False, 0)
+    t = [torch.from_numpy(a) for a in (data, recon, mu, logvar, d_z)]
+    _, p_metrics = p.eval_losses(t[0], t[1], (t[2], t[3]), t[4], False, 0)
+    _assert_dicts_close(p_metrics, j_metrics)
 
 
 def test_math_helpers_match_jax():

@@ -118,10 +118,12 @@ def test_unsupported_image_size_raises(img_size):
 
 
 def test_port_never_imports_jax():
-    """Importing the port (CLI and serving included) leaves jax out of
-    sys.modules."""
+    """Importing the port (CLI, serving, trainer, steps, feeds and the
+    convT backward included) leaves jax out of sys.modules."""
     code = ("import sys; import disvae_tpu_torch, disvae_tpu_torch.cli, "
-            "disvae_tpu_torch.serve; "
+            "disvae_tpu_torch.serve, disvae_tpu_torch.train.trainer, "
+            "disvae_tpu_torch.train.steps, disvae_tpu_torch.data.resident, "
+            "disvae_tpu_torch.data.prefetch, disvae_tpu_torch.ops.convt_bwd; "
             "print(sorted(m for m in sys.modules if m in ('jax', 'disvae_tpu') "
             "or m.startswith(('jax.', 'disvae_tpu.'))))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
