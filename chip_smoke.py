@@ -41,7 +41,26 @@ Phases (any failure raises and exits non-zero; there is no CPU carry-on):
    turns (without, with, with, without), then one torch.profiler window
    each: device time by kernel and the device's idle share.
 9. FactorVAE through the CLI (b128 doubled to b256, 2 epochs); K1/K2 run
-   on the 128-image half batch.
+   on the 128-image half batch. Once with `--no-viz-gif` and once with the
+   per-epoch training gif: training.gif has one 662 x 662 RGB frame per
+   epoch, its frames decode to the rendered ones within the palette bound,
+   and each frame's milliseconds are printed.
+10. Eval variants on the dsprites lattice: `--fast-metrics` (no K3 launch;
+   entropy seconds, |dMIG| <= 1e-3 and |dAAM| <= 1e-2 against the K3
+   run, the bounds of tests/test_torch_fast_metrics.py), and
+   `--resident-data always` against `never` (encode seconds; MIG and AAM
+   identical); the resident upload timed alone.
+11. Export (in the serving phase): `torch.export` of the dsprites
+   checkpoint at batch 64, loaded back and held to ServingModel on the
+   card, max |d| <= 1e-5 under `highest`.
+12. Viz: `python -m disvae_tpu_torch.cli_viz <name> all -s 1234
+   --is-show-loss`, then with `--is-posterior`, on the celeba run of
+   phase 7 and the dsprites checkpoint of phase 5 (seconds per plot). Every
+   file has the JAX package's geometry at -r 6 -c 7; the PNG and GIF files
+   decode (with readers of the port's own encoding, below) to the rendered
+   arrays, grey exactly and RGB within the palette bound; the prior
+   traversals re-rendered on the CPU agree with the card's within 1; the
+   process never imported PIL, imageio or pandas.
 
 Its last two lines are JSON: the kernels' record, then
 {"ok": true, "device": {...}}. Scratch data lives under build/ and is
@@ -53,11 +72,13 @@ import math
 import os
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -74,6 +95,11 @@ CONVT_F32, CONVT_BF16, CONVT_VS_CUDNN = 1e-5, 1e-3, 3e-2
 CONVT_SHAPES = [(256, 32, 32, 3), (128, 32, 32, 3), (256, 16, 32, 1),
                 (6, 4, 8, 5)]
 N_CELEBA = 25637  # 100 batches of 256 and a ragged tail of 37
+EXPORT_ATOL = 1e-5  # exported program vs ServingModel, float32 both
+# cli_viz's default grid: -r 6 rows, -c 7 columns of 64 px cells, 2 px pads
+VIZ_ROWS, VIZ_COLS, VIZ_GIF_FRAMES = 6, 7, 15
+# |dMIG|, |dAAM| of `--fast-metrics` against K3 (tests/test_torch_fast_metrics)
+FAST_MIG_ATOL, FAST_AAM_ATOL = 1e-3, 1e-2
 # (L, M, D, S) of the entropy sweeps at dsprites scale
 KERNEL_SHAPES = [(1, 737280, 10, 2000), (3, 245760, 10, 2000),
                  (32, 23040, 10, 2000)]
@@ -97,6 +123,92 @@ def time_ms(fn, reps):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def read_png(path):
+    """Decode a PNG as the port writes it: 8-bit rows of filter type 0 in
+    zlib IDAT chunks, every chunk CRC checked."""
+    with open(path, "rb") as f:
+        buf = f.read()
+    if buf[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError("{}: not a PNG".format(path))
+    pos, idat = 8, b""
+    while pos < len(buf):
+        n, tag = struct.unpack(">I4s", buf[pos:pos + 8])
+        data = buf[pos + 8:pos + 8 + n]
+        crc, = struct.unpack(">I", buf[pos + 8 + n:pos + 12 + n])
+        if zlib.crc32(tag + data) != crc:
+            raise AssertionError("{}: bad {} CRC".format(path, tag))
+        if tag == b"IHDR":
+            w, h, depth, colour = struct.unpack(">IIBB", data[:10])
+        elif tag == b"IDAT":
+            idat += data
+        pos += 12 + n
+    c = {0: 1, 2: 3, 6: 4}[colour]
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, -1)
+    if depth != 8 or rows.shape[1] != 1 + w * c or rows[:, 0].any():
+        raise AssertionError("{}: not 8-bit filter-0 rows".format(path))
+    return rows[:, 1:].reshape(h, w, c)
+
+
+def _sub_blocks(buf, pos):
+    out = b""
+    while buf[pos]:
+        out += buf[pos + 1:pos + 1 + buf[pos]]
+        pos += 1 + buf[pos]
+    return out, pos + 1
+
+
+def read_gif(path):
+    """Decode a GIF as the port writes it: full frames with a 256-entry
+    local palette, LZW codes all 9-bit literals with a clear code at most
+    every 254 of them. Returns (frames (H, W, 3) uint8, delays, loop)."""
+    with open(path, "rb") as f:
+        buf = f.read()
+    if buf[:6] != b"GIF89a" or buf[10] & 0x80:
+        raise AssertionError("{}: not the port's GIF layout".format(path))
+    w, h = struct.unpack("<HH", buf[6:10])
+    pos, frames, delays, loop = 13, [], [], None
+    while buf[pos] != 0x3B:
+        if buf[pos] == 0x21:
+            label = buf[pos + 1]
+            body, pos = _sub_blocks(buf, pos + 2)
+            if label == 0xF9:
+                delays.append(struct.unpack("<H", body[1:3])[0])
+            elif label == 0xFF and body[:11] == b"NETSCAPE2.0":
+                loop = struct.unpack("<H", body[12:14])[0]
+            continue
+        fw, fh, flags = struct.unpack("<HHB", buf[pos + 5:pos + 10])
+        pos += 10
+        palette = np.frombuffer(buf[pos:pos + 768], np.uint8).reshape(256, 3)
+        pos += 768
+        if (fw, fh) != (w, h) or flags != 0x87 or buf[pos] != 8:
+            raise AssertionError("{}: unexpected frame header".format(path))
+        data, pos = _sub_blocks(buf, pos + 1)
+        bits = np.unpackbits(np.frombuffer(data, np.uint8), bitorder="little")
+        n = bits.size // 9
+        codes = bits[:n * 9].reshape(n, 9).astype(np.int64) @ (
+            1 << np.arange(9))
+        codes = codes[:np.flatnonzero(codes == 257)[0]]
+        clears = np.flatnonzero(codes == 256)
+        lit = codes[codes != 256]
+        if clears[0] != 0 or np.diff(np.append(clears, codes.size)).max() \
+                > 255 or lit.max() > 255 or lit.size != w * h:
+            raise AssertionError("{}: not a literal-code stream".format(path))
+        frames.append(palette[lit].reshape(h, w, 3))
+    return frames, delays, loop
+
+
+def _grid_shape(rows, cols, px=64):
+    """(H, W) of a make_grid of rows x cols cells with 2 px padding."""
+    return rows * (px + 2) + 2, cols * (px + 2) + 2
+
+
+def _max_diff(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    if a.shape != b.shape:
+        raise AssertionError("shapes {} and {}".format(a.shape, b.shape))
+    return int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max())
 
 
 def phase_device():
@@ -306,6 +418,9 @@ def phase_main_path(K, scratch):
             **losses))
     if launches <= 0:
         raise AssertionError("the eval run never launched the log_qz kernel")
+    if evaluator._resident is not None:
+        raise AssertionError("`--resident-data auto` built an eval-only "
+                             "upload; it streams unless handed one")
     if not all(math.isfinite(v) for v in list(metrics.values())
                + list(losses.values())):
         raise AssertionError("non-finite metrics or losses")
@@ -315,7 +430,7 @@ def phase_main_path(K, scratch):
             or helpers["cond_entropies"].shape != (5, 10):
         raise AssertionError("unexpected entropy shapes")
     subset_check(evaluator.model, datasets)
-    return exp_dir, datasets, launches
+    return exp_dir, datasets, launches, metrics, timings
 
 
 def subset_check(model, datasets):
@@ -339,6 +454,55 @@ def subset_check(model, datasets):
         "diff {:.3e}".format(err))
     if not (np.isfinite(H["cuda"]).all() and err <= ATOL):
         raise AssertionError("subset entropies disagree: {}".format(err))
+
+
+def phase_eval_variants(K, scratch, exp_dir, datasets, base, base_timings):
+    """The same full-lattice eval through the CLI with `--fast-metrics`,
+    then with `--resident-data always` and `never`; the upload alone."""
+    from disvae_tpu_torch import cli
+    from disvae_tpu_torch.data.resident import ResidentData
+    from disvae_tpu_torch.utils.modelIO import load_metadata
+
+    argv = [os.path.basename(exp_dir), "--is-eval-only", "--is-metrics",
+            "-l", "btcvae", "--no-test", "--no-progress-bar", "-s", str(SEED)]
+    K.log_qz.launches = 0
+    _, ev, seconds = _cli_run(cli, scratch, argv + ["--fast-metrics"])
+    if K.log_qz.launches:
+        raise AssertionError("the --fast-metrics run launched K3")
+    fast = load_metadata(exp_dir, filename="metrics.log")
+    d_mig = abs(fast["MIG"] - base["MIG"])
+    d_aam = abs(fast["AAM"] - base["AAM"])
+    log("--fast-metrics eval: {:.1f} s; entropies {:.3f} s (K3 run: {:.3f} "
+        "s); MIG {} AAM {}; |dMIG| {:.3e}, |dAAM| {:.3e}".format(
+            seconds, ev.last_metrics_timings["entropy_seconds"],
+            base_timings["entropy_seconds"], fast["MIG"], fast["AAM"],
+            d_mig, d_aam))
+    if not (0 <= fast["MIG"] <= 1 and 0 <= fast["AAM"] <= 1) \
+            or d_mig > FAST_MIG_ATOL or d_aam > FAST_AAM_ATOL:
+        raise AssertionError("--fast-metrics: {} against {}".format(fast,
+                                                                    base))
+    runs = {}
+    for policy in ("always", "never"):
+        _, ev, seconds = _cli_run(cli, scratch,
+                                  argv + ["--resident-data", policy])
+        runs[policy] = (load_metadata(exp_dir, filename="metrics.log"),
+                        ev.last_metrics_timings["encode_seconds"])
+        if (ev._resident is not None) != (policy == "always"):
+            raise AssertionError("--resident-data {} fed the encode "
+                                 "otherwise".format(policy))
+        log("--resident-data {} eval: {:.1f} s; encode {:.3f} s; {}".format(
+            policy, seconds, runs[policy][1],
+            json.dumps(runs[policy][0], sort_keys=True)))
+    if runs["always"][0] != runs["never"][0]:
+        raise AssertionError("resident and streamed encodes gave different "
+                             "metrics")
+    ds = datasets.get_dataset("dsprites")()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ResidentData(ds, "cuda")
+    torch.cuda.synchronize()
+    log("resident upload alone (737,280 bitpacked images, 377 MB): {:.3f} "
+        "s".format(time.perf_counter() - t0))
 
 
 def phase_serving(exp_dir, datasets):
@@ -370,6 +534,28 @@ def phase_serving(exp_dir, datasets):
     if samples.shape != (8, 64, 64, 1) or not np.isfinite(samples).all():
         raise AssertionError("sample(8)")
     log("serve sample(8): ok")
+
+    from disvae_tpu_torch.serve import export_artifacts, load_artifact
+    t0 = time.perf_counter()
+    paths = export_artifacts(exp_dir, batch_size=64, device="cuda")
+    t_export = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    encode, decode = (load_artifact(p) for p in paths)
+    t_load = time.perf_counter() - t0
+    x, _ = ds.get_batch(np.sort(rng.choice(len(ds), 64, replace=False)))
+    with torch.no_grad():
+        mu, logvar = encode(torch.from_numpy(x).cuda())
+        rec = decode(mu)
+    r_mu, r_logvar = sm.encode(x)
+    err = max(float(np.abs(a.cpu().numpy() - b).max()) for a, b in
+              ((mu, r_mu), (logvar, r_logvar), (rec, sm.decode(r_mu))))
+    log("export at batch 64: {:.2f} s ({}), load {:.2f} s; exported vs "
+        "ServingModel max |d| {:.3e}".format(
+            t_export, ", ".join("{} {:.0f} kB".format(
+                os.path.basename(p), os.path.getsize(p) / 1e3)
+                for p in paths), t_load, err))
+    if not err <= EXPORT_ATOL:
+        raise AssertionError("exported program vs eager: {}".format(err))
 
 
 def _cli_run(cli, scratch, argv):
@@ -559,45 +745,191 @@ def phase_ab(C, datasets):
 
 def phase_factor(C, scratch):
     """FactorVAE through the CLI on the same subset: b128 and 1 epoch,
-    doubled by the CLI to b256 and 2 epochs; K1/K2 on the half batch."""
+    doubled by the CLI to b256 and 2 epochs; K1/K2 on the half batch. Run
+    without the training gif, then with it (each frame timed)."""
     from disvae_tpu_torch import cli
     from disvae_tpu_torch.models import burgess
     from disvae_tpu_torch.ops.precision import configure
     from disvae_tpu_torch.utils.modelIO import load_metadata
+    from disvae_tpu_torch.utils.visualize import GifTraversalsTraining
+    from disvae_tpu_torch.utils.viz_helpers import GIF_MAX_ERR
 
-    name = "chip_smoke_factor_celeba"
-    burgess.set_final_convt_impl(C.conv_transpose2d_pl)
-    try:
-        C.convt3_dw.launches = C.convt3_dx.launches = 0
-        trainer, _, seconds = _cli_run(cli, scratch, [
-            name, "-d", "celeba", "-l", "factor", "--factor-G", "6.4",
-            "--lr", "1e-4", "--lr-disc", "1e-5", "-b", "128", "-e", "1",
-            "--precision", "default", "--no-viz-gif", "--no-progress-bar",
-            "-s", str(SEED)])
-        launches = (C.convt3_dw.launches, C.convt3_dx.launches)
-    finally:
-        burgess.set_final_convt_impl(burgess.conv_transpose2d)
-        configure("highest")
-    exp_dir = os.path.join(scratch, cli.RES_DIR, name)
-    log("factor CLI (celeba, b128 -> b256, 2 epochs): {:.1f} s, {} steps, "
-        "K1 launches {}, K2 launches {}; epochs {}".format(
-            seconds, trainer.state.step, *launches, ", ".join(
-                "{:.4f} loss at {:.0f} images/sec".format(
-                    e["loss"], e["images_per_sec"])
-                for e in trainer.epoch_stats)))
-    if min(launches) <= 0:
-        raise AssertionError("the factor run never launched K1/K2")
-    rows = _read_log(exp_dir)
-    keys = {r[1] for r in rows}
-    if not {"loss", "tc_loss", "discrim_loss"} <= keys \
-            or not all(math.isfinite(float(r[2])) for r in rows):
-        raise AssertionError("factor train_losses.log: {}".format(keys))
-    losses = load_metadata(exp_dir, filename="test_losses.log")
-    if not all(math.isfinite(v) for v in losses.values()):
-        raise AssertionError("non-finite factor test losses")
-    last = {r[1]: r[2] for r in rows if r[0] == "1"}
-    log("factor train_losses.log, epoch 1: loss {loss}, tc_loss {tc_loss}, "
-        "discrim_loss {discrim_loss}".format(**last))
+    frame_ms, rendered = [], []
+
+    class TimedGif(GifTraversalsTraining):
+        def __call__(self, model):
+            t0 = time.perf_counter()
+            super().__call__(model)
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+
+        def save_reset(self):
+            rendered.extend(self.images)
+            super().save_reset()
+
+    for gif in (False, True):
+        name = "chip_smoke_factor_celeba" + ("" if gif else "_nogif")
+        burgess.set_final_convt_impl(C.conv_transpose2d_pl)
+        cli.GifTraversalsTraining = TimedGif
+        try:
+            C.convt3_dw.launches = C.convt3_dx.launches = 0
+            trainer, _, seconds = _cli_run(cli, scratch, [
+                name, "-d", "celeba", "-l", "factor", "--factor-G", "6.4",
+                "--lr", "1e-4", "--lr-disc", "1e-5", "-b", "128", "-e", "1",
+                "--precision", "default", "--no-progress-bar", "-s",
+                str(SEED)] + ([] if gif else ["--no-viz-gif"]))
+            launches = (C.convt3_dw.launches, C.convt3_dx.launches)
+        finally:
+            cli.GifTraversalsTraining = GifTraversalsTraining
+            burgess.set_final_convt_impl(burgess.conv_transpose2d)
+            configure("highest")
+        exp_dir = os.path.join(scratch, cli.RES_DIR, name)
+        log("factor CLI (celeba, b128 -> b256, 2 epochs, {}): {:.1f} s, {} "
+            "steps, K1 launches {}, K2 launches {}; epochs {}".format(
+                "with the training gif" if gif else "--no-viz-gif", seconds,
+                trainer.state.step, *launches, ", ".join(
+                    "{:.4f} loss at {:.0f} images/sec".format(
+                        e["loss"], e["images_per_sec"])
+                    for e in trainer.epoch_stats)))
+        if min(launches) <= 0:
+            raise AssertionError("the factor run never launched K1/K2")
+        rows = _read_log(exp_dir)
+        keys = {r[1] for r in rows}
+        if not {"loss", "tc_loss", "discrim_loss"} <= keys \
+                or not all(math.isfinite(float(r[2])) for r in rows):
+            raise AssertionError("factor train_losses.log: {}".format(keys))
+        losses = load_metadata(exp_dir, filename="test_losses.log")
+        if not all(math.isfinite(v) for v in losses.values()):
+            raise AssertionError("non-finite factor test losses")
+        last = {r[1]: r[2] for r in rows if r[0] == "1"}
+        log("factor train_losses.log, epoch 1: loss {loss}, tc_loss "
+            "{tc_loss}, discrim_loss {discrim_loss}".format(**last))
+
+    path = os.path.join(exp_dir, "training.gif")
+    frames, delays, loop = read_gif(path)
+    n_epochs = len(trainer.epoch_stats)
+    if len(frames) != n_epochs or len(rendered) != n_epochs \
+            or any(f.shape != (662, 662, 3) for f in frames) \
+            or delays != [8] * n_epochs or loop != 0:
+        raise AssertionError("training.gif: {} frames of {}, delays {}, "
+                             "loop {}; {} epochs".format(
+                                 len(frames), frames[0].shape, delays, loop,
+                                 n_epochs))
+    err = max(_max_diff(a, b) for a, b in zip(frames, rendered))
+    if err > GIF_MAX_ERR:
+        raise AssertionError("training.gif frames decode {} away from the "
+                             "rendered ones".format(err))
+    log("training.gif: {} frames of 662 x 662 RGB ({:.0f} kB), {} ms per "
+        "frame to render, decoded within {} of the rendered frames "
+        "(palette bound {})".format(
+            len(frames), os.path.getsize(path) / 1e3,
+            " / ".join("{:.2f}".format(t) for t in frame_ms), err,
+            GIF_MAX_ERR))
+
+
+def _write_kl_log(exp_dir, datasets):
+    """A train_losses.log for a checkpoint that was never trained: one
+    epoch of per-dimension KLs of its posteriors over 1,000 dataset images
+    (the traversal rows are ordered by them)."""
+    from disvae_tpu_torch.utils.modelIO import load_metadata, load_model
+    model = load_model(exp_dir, device="cuda")
+    ds = datasets.get_dataset(load_metadata(exp_dir)["dataset"])()
+    x, _ = ds.get_batch(np.linspace(0, len(ds) - 1, 1000).astype(np.int64))
+    with torch.no_grad():
+        mu, logvar = model.encode(torch.from_numpy(x).cuda())
+        kl = (0.5 * (mu ** 2 + logvar.exp() - logvar - 1)).mean(0)
+    with open(os.path.join(exp_dir, "train_losses.log"), "w") as f:
+        f.write("Epoch,Loss,Value\n")
+        for d, v in enumerate(kl.tolist()):
+            f.write("0,kl_loss_{},{}\n".format(d, v))
+
+
+def phase_viz(scratch, runs, datasets):
+    """cli_viz `all` on each (name, dataset) run, prior and posterior,
+    with seconds per plot; geometry, decoding and CPU-vs-card checks."""
+    from disvae_tpu_torch import cli, cli_viz
+    from disvae_tpu_torch.utils.helpers import set_seed
+    from disvae_tpu_torch.utils.modelIO import load_model
+    from disvae_tpu_torch.utils.visualize import Visualizer
+    from disvae_tpu_torch.utils.viz_helpers import GIF_MAX_ERR, get_samples
+
+    grid = _grid_shape(VIZ_ROWS, VIZ_COLS)
+    expect = {f: grid for f in ("samples.png", "data_samples.png",
+                                "reconstruct.png", "prior_traversals.png",
+                                "posterior_traversals.png")}
+    expect["reconstruct_traverse.png"] = (
+        _grid_shape(2, VIZ_COLS)[0] + grid[0], grid[1] + 100)
+    gif_shape = (grid[0], 2 + VIZ_COLS * 66, 3)
+    for name, dataset in runs:
+        exp_dir = os.path.join(scratch, cli.RES_DIR, name)
+        if not os.path.exists(os.path.join(exp_dir, "train_losses.log")):
+            _write_kl_log(exp_dir, datasets)
+        for flags in ([], ["--is-posterior"]):
+            cwd = os.getcwd()
+            os.chdir(scratch)
+            try:
+                seconds = cli_viz.main(cli_viz.parse_arguments(
+                    [name, "all", "-s", str(SEED), "--is-show-loss"] + flags))
+            finally:
+                os.chdir(cwd)
+            log("viz {} ({}): {}".format(name, "posterior" if flags else
+                                          "prior", ", ".join(
+                                              "{} {:.3f} s".format(k, v)
+                                              for k, v in seconds.items())))
+        for f, shape in expect.items():
+            img = read_png(os.path.join(exp_dir, f))
+            if img.shape != shape + (3,):
+                raise AssertionError("{}/{}: {} != {}".format(
+                    name, f, img.shape, shape + (3,)))
+        gif_path = os.path.join(exp_dir, "posterior_traversals.gif")
+        frames, delays, loop = read_gif(gif_path)
+        if len(frames) != VIZ_GIF_FRAMES or frames[0].shape != gif_shape \
+                or delays != [8] * VIZ_GIF_FRAMES or loop != 0:
+            raise AssertionError("{} posterior gif: {} frames of {}".format(
+                name, len(frames), frames[0].shape))
+
+        # the prior traversals: the written PNG is the card's render, which
+        # the CPU's render matches within 1
+        renders = {}
+        for dev in ("cuda", "cpu"):
+            viz = Visualizer(load_model(exp_dir, device=dev), dataset,
+                             exp_dir, save_images=False,
+                             loss_of_interest="kl_loss_", max_traversal=2)
+            renders[dev] = viz.traversals(is_reorder_latents=True,
+                                          n_per_latent=VIZ_COLS,
+                                          n_latents=VIZ_ROWS)
+        png = read_png(os.path.join(exp_dir, "prior_traversals.png"))
+        if not np.array_equal(png, renders["cuda"]):
+            raise AssertionError("{}: prior_traversals.png does not decode "
+                                 "to the card's render".format(name))
+        d_cpu = _max_diff(renders["cuda"], renders["cpu"])
+        # the posterior gif again from the CLI's samples: the same bytes,
+        # decoding to the rendered frames (grey exactly)
+        with open(gif_path, "rb") as f:
+            cli_bytes = f.read()
+        set_seed(SEED)
+        samples = get_samples(dataset, VIZ_ROWS * VIZ_COLS)
+        viz = Visualizer(load_model(exp_dir, device="cuda"), dataset,
+                         exp_dir, loss_of_interest="kl_loss_",
+                         max_traversal=2)
+        rendered = viz.gif_traversals(samples[:VIZ_COLS], n_latents=VIZ_ROWS)
+        with open(gif_path, "rb") as f:
+            same = f.read() == cli_bytes
+        frames, _, _ = read_gif(gif_path)
+        err = max(_max_diff(a, b) for a, b in zip(frames, rendered))
+        grey = all((r[..., 0] == r[..., 2]).all() for r in rendered)
+        bound = 0 if grey else GIF_MAX_ERR
+        log("viz {}: prior traversals card vs CPU max |d| {} (uint8); PNG "
+            "decodes exactly; posterior gif {} frames, rerender {} the "
+            "CLI's bytes, decoded within {} ({} bound {})".format(
+                name, d_cpu, len(frames), "equals" if same else "differs from",
+                err, "grey" if grey else "RGB", bound))
+        if d_cpu > 1 or not same or err > bound:
+            raise AssertionError("viz checks failed for {}".format(name))
+    loaded = sorted(m for m in ("PIL", "imageio", "pandas")
+                    if m in sys.modules)
+    if loaded:
+        raise AssertionError("the viz path loaded {}".format(loaded))
+    log("viz path: PIL, imageio and pandas never imported")
 
 
 def main():
@@ -615,11 +947,16 @@ def main():
     os.makedirs(build_dir, exist_ok=True)
     scratch = tempfile.mkdtemp(prefix="chip_smoke_", dir=build_dir)
     try:
-        exp_dir, datasets, launches = phase_main_path(K, scratch)
+        exp_dir, datasets, launches, metrics, timings = phase_main_path(
+            K, scratch)
+        phase_eval_variants(K, scratch, exp_dir, datasets, metrics, timings)
         phase_serving(exp_dir, datasets)
         dw_launches, dx_launches = phase_train(C, scratch)
         phase_ab(C, datasets)
         phase_factor(C, scratch)
+        phase_viz(scratch, [("chip_smoke_btcvae_celeba", "celeba"),
+                            (os.path.basename(exp_dir), "dsprites")],
+                  datasets)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 

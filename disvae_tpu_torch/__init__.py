@@ -2,16 +2,20 @@
 
 A second package beside the JAX one (`disvae_tpu`, the reference it is
 tested against), with the same module layout: `models/`, `ops/`, `data/`,
-`train/`, `utils/`, `serve.py`, `cli.py`. It imports torch and never jax.
+`train/`, `utils/`, `serve.py`, `cli.py`, `cli_viz.py`. It imports torch
+and never jax.
 
 Ported so far: serving encode/decode/reconstruct/sample requests
-(`serve.ServingModel`); evaluation (`python -m disvae_tpu_torch <name>
---is-eval-only --is-metrics`): test losses, the full-dataset encode, and
-the MIG/AAM entropy sweeps through the hand-written CUDA kernel
-`ops.log_qz`; and training (`python -m disvae_tpu_torch <name> -d
-<dataset> -l <loss> ...`), whose final decoder transposed conv can take
-the hand-written backward kernels of `ops.convt_bwd`. The CUDA sources in
-`csrc/` are built with nvcc at first use into `build/disvae_tpu_torch/`.
+(`serve.ServingModel`) and `torch.export` artifacts (`python -m
+disvae_tpu_torch.serve <name>`); evaluation (`python -m disvae_tpu_torch
+<name> --is-eval-only --is-metrics`): test losses, the full-dataset
+encode, and the MIG/AAM entropy sweeps through the hand-written CUDA
+kernel `ops.log_qz`; training (`python -m disvae_tpu_torch <name> -d
+<dataset> -l <loss> ...`) with its per-epoch traversal gif, whose final
+decoder transposed conv can take the hand-written backward kernels of
+`ops.convt_bwd`; and the plots (`python -m disvae_tpu_torch.cli_viz
+<name> all`). The CUDA sources in `csrc/` are built with nvcc at first use
+into `build/disvae_tpu_torch/`.
 """
 
 __version__ = "0.1.0"

@@ -9,14 +9,17 @@ says) and both branches:
 
 * training (without `--is-eval-only`): a fresh (or, with `--resume`,
   reused) `results/<name>/`, a seeded loader and init, the Trainer
-  (train_losses.log, model-<e>.pt, train_state.pt), then `model.pt` and
-  `specs.json` with every resolved flag;
+  (train_losses.log, model-<e>.pt, train_state.pt and, unless
+  `--no-viz-gif`, training.gif with one prior-traversal frame per epoch),
+  then `model.pt` and `specs.json` with every resolved flag;
 * evaluation: `test_losses.log` and, with `--is-metrics`, `metrics.log` +
-  `metric_helpers.pth`.
+  `metric_helpers.pth` (`--fast-metrics`: the bf16 entropy estimator).
+  The metrics encode reuses the training run's device-resident upload
+  when both cover the same images; otherwise it streams, unless
+  `--resident-data always` uploads the dataset for it.
 
-The flags whose paths wait for later slices raise NotImplementedError
-naming ROADMAP.md: `--fast-metrics`, `--model-parallel` > 1, and training
-without `--no-viz-gif` (the per-epoch gif needs the visualization slice).
+`--model-parallel` > 1 waits for the data-parallel slice and raises
+NotImplementedError naming ROADMAP.md.
 
 The device is CUDA unless `--no-cuda` asks for the CPU; without a GPU
 and without `--no-cuda` the CLI raises rather than run on the CPU. The
@@ -43,10 +46,11 @@ from disvae_tpu_torch.train.trainer import Trainer
 from disvae_tpu_torch.utils.helpers import (FormatterNoDuplicate,
                                             create_safe_directory,
                                             derive_seeds, get_config_section,
-                                            get_n_param, set_seed,
+                                            get_device, get_n_param, set_seed,
                                             update_namespace_)
 from disvae_tpu_torch.utils.modelIO import (load_metadata, load_model,
                                             save_model)
+from disvae_tpu_torch.utils.visualize import GifTraversalsTraining
 
 # The experiment config is the JAX package's file, read (not imported).
 CONFIG_FILE = os.path.join(
@@ -58,8 +62,6 @@ ADDITIONAL_EXP = ["custom", "debug", "best_celeba", "best_dsprites"]
 EXPERIMENTS = ADDITIONAL_EXP + ["{}_{}".format(loss, data)
                                 for loss in LOSSES
                                 for data in DATASETS]
-_GIF = ("The per-epoch training gif is not ported yet (ROADMAP.md, Queue 2: "
-        "visualization); train with --no-viz-gif.")
 
 
 def parse_arguments(args_to_parse):
@@ -108,13 +110,14 @@ def parse_arguments(args_to_parse):
                          help='Run single-device (the port always does).')
     general.add_argument('--resident-data', default='auto',
                          choices=['auto', 'always', 'never'],
-                         help='Device-resident training feed: "auto" '
-                              'when the wire-format dataset fits the '
-                              'budget, "always", or "never" (stream '
-                              'batches). Evaluation streams.')
+                         help='Device-resident feed: "auto" trains from '
+                              'an upload when the wire-format dataset fits '
+                              'the budget and lets the metrics encode reuse '
+                              'it, "always" uploads for training and for an '
+                              'eval-only encode, "never" streams batches.')
     general.add_argument('--no-viz-gif', action='store_true', default=False,
-                         help='Skip the per-epoch traversal gif (not '
-                              'ported yet: training requires this flag).')
+                         help='Skip the per-epoch traversal gif '
+                              '(results/<name>/training.gif).')
 
     training = parser.add_argument_group('Training specific options')
     training.add_argument('--checkpoint-every', type=int,
@@ -214,8 +217,9 @@ def parse_arguments(args_to_parse):
                                  'MIG by more than 10x).')
     evaluation.add_argument('--fast-metrics', action='store_true',
                             default=False,
-                            help='Approximate bf16 entropy estimator (not '
-                                 'ported yet; raises).')
+                            help='Approximate bf16 entropy estimator for '
+                                 'exploratory sweeps (about 2e-2 absolute '
+                                 'log-density error; not for parity gates).')
 
     args = parser.parse_args(args_to_parse)
     if args.experiment != 'custom':
@@ -235,15 +239,6 @@ def parse_arguments(args_to_parse):
     return args
 
 
-def _device(args):
-    if args.no_cuda:
-        return torch.device("cpu")
-    if not torch.cuda.is_available():
-        raise RuntimeError("No CUDA device is visible; pass --no-cuda to "
-                           "evaluate on the CPU.")
-    return torch.device("cuda")
-
-
 def main(args):
     """Run the CLI. Returns (trainer, evaluator): the Trainer that ran
     (None with --is-eval-only; its `epoch_stats` hold each epoch's mean
@@ -259,17 +254,12 @@ def main(args):
     stream.setFormatter(formatter)
     logger.addHandler(stream)
 
-    if not args.is_eval_only and not args.no_viz_gif:
-        raise NotImplementedError(_GIF)
-    if args.fast_metrics:
-        raise NotImplementedError("--fast-metrics is not ported yet "
-                                  "(ROADMAP.md, Queue 2).")
     if args.model_parallel != 1:
         raise NotImplementedError("--model-parallel is not ported yet "
                                   "(ROADMAP.md, Queue 2).")
 
     configure(args.precision)
-    device = _device(args)
+    device = get_device(args.no_cuda)
     if args.debug_nans:
         torch.autograd.set_detect_anomaly(True)
     set_seed(args.seed)
@@ -307,6 +297,10 @@ def main(args):
             generator=torch.Generator().manual_seed(init_seed),
             device=device)
         logger.info('Num parameters in model: {}'.format(get_n_param(model)))
+        gif_visualizer = None
+        if not args.no_viz_gif:
+            gif_visualizer = GifTraversalsTraining(model, args.dataset,
+                                                   exp_dir)
         loss_f = get_loss_f(args.loss,
                             n_data=len(train_loader.dataset),
                             device=device,
@@ -316,6 +310,7 @@ def main(args):
                           logger=logger,
                           save_dir=exp_dir,
                           is_progress_bar=not args.no_progress_bar,
+                          gif_visualizer=gif_visualizer,
                           resident=args.resident_data,
                           resume=args.resume,
                           skip_tiny_tail=True)
@@ -351,11 +346,25 @@ def main(args):
                             n_data=len(test_loader.dataset),
                             device=device,
                             **vars(args))
+        # The metrics encode reuses the training run's resident upload when
+        # the eval loader covers the same image set (the wire bytes are a
+        # function of the dataset class, its root and its images).
+        eval_resident = args.resident_data
+        if (trainer is not None and trainer.resident_data is not None
+                and type(test_loader.dataset) is type(train_loader.dataset)
+                and len(test_loader.dataset) == len(train_loader.dataset)
+                and getattr(test_loader.dataset, "root", None)
+                == getattr(train_loader.dataset, "root", None)):
+            logger.info("Evaluator reuses the training run's resident "
+                        "dataset upload.")
+            eval_resident = trainer.resident_data
         evaluator = Evaluator(model, loss_f,
                               logger=logger,
                               save_dir=exp_dir,
                               scramble_quirk=not args.corrected_mig,
-                              metrics_seed=metrics_seed)
+                              metrics_seed=metrics_seed,
+                              fast_entropies=args.fast_metrics,
+                              resident=eval_resident)
         evaluator(test_loader, is_metrics=args.is_metrics,
                   is_losses=not args.no_test)
     return trainer, evaluator

@@ -59,6 +59,11 @@ def get_img_size(dataset):
     return get_dataset(dataset).img_size
 
 
+def get_background(dataset):
+    """Background colour of `dataset`, the pad colour of the plots."""
+    return get_dataset(dataset).background_color
+
+
 def get_dataloaders(dataset, root=None, shuffle=True, batch_size=128,
                     logger=logging.getLogger(__name__), seed=None, **kwargs):
     """Build a DataLoader for a registered dataset."""

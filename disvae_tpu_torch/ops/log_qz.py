@@ -20,6 +20,10 @@ disvae_tpu/train/evaluate.py `_streaming_log_qz`. Three pieces live here:
 * `log_qz` — the wrapper. It takes the plain version only for CPU tensors.
   For CUDA tensors it launches the kernel or raises; nothing falls back.
   `log_qz.launches` counts its kernel launches.
+
+`log_qz_fast` is the `--fast-metrics` estimator, the counterpart of
+disvae_tpu/ops/pallas_kernels.py `log_qz_mxu` (XLA ops there, stock
+PyTorch ops here, no kernel of its own).
 """
 
 import ctypes
@@ -35,6 +39,7 @@ from disvae_tpu_torch.ops.math import log_density_gaussian
 _COMP_CHUNK = 2048
 
 _NAME = "log_qz"
+_LOG2PI = math.log(2 * math.pi)
 
 
 def log_qz_plain(values, mu, logvar, comp_chunk=None):
@@ -57,6 +62,57 @@ def log_qz_plain(values, mu, logvar, comp_chunk=None):
                    + torch.exp(ld - new_max[:, None]).sum(dim=1))
         run_max = new_max
     return torch.log(run_sum) + run_max
+
+
+def log_qz_fast(values, mu, logvar, chunk=None):
+    """Approximate log_qz with bf16 products, for exploratory sweeps.
+
+    The Gaussian log density is quadratic in the value: ld[l, m, d, s] =
+    A[l, m, d, :] . [v^2, v, 1][l, d, :, s], a batched (chunk, 3) @ (3, S)
+    product per component chunk. Both operands are rounded to bf16 and
+    upcast, and the product is taken in float32 (the products of bf16
+    values are exact in float32, so this is a bf16 matmul with float32
+    accumulation, on every device and precision policy). The exp-sum runs
+    in float32 without an online max: each slice's log densities are
+    bounded by G = max -0.5 * (logvar + log 2pi), so exp(ld - G) <= 1.
+    M is padded to a multiple of `chunk` (by default the JAX evaluator's:
+    8192 for L = 1, else max(256, 2048 // L)); padded components get a
+    constant term of -inf.
+
+    Error: rounding both operands to bf16 (unit roundoff u = 2^-8) moves
+    each component's log density by at most (2u + u^2) sum_k |A_k F_k|,
+    and a logsumexp by at most the largest such move, so at (l, d, s) the
+    error is below (2^-7 + 2^-16) max_m sum_k |A[l, m, d, k] F[l, d, k, s]|
+    plus float32 rounding. That is about 2e-2 at unit-scale inputs (the
+    JAX docstring's figure) and grows with v^2 / var: tight posteriors
+    make the terms large while their sum stays small. A value whose every
+    component underflows exp (ld - G < -87) gives -inf. The exact
+    `log_qz` is what parity gates use.
+    """
+    L, D, S = values.shape
+    M = mu.shape[1]
+    if chunk is None:
+        chunk = 8192 if L == 1 else max(256, _COMP_CHUNK // L)
+    invvar = torch.exp(-logvar)
+    peak = -0.5 * (logvar + _LOG2PI)
+    G = peak.amax(dim=(1, 2))                                   # (L,)
+    c0 = peak - 0.5 * mu ** 2 * invvar - G[:, None, None]
+    A = torch.stack([-0.5 * invvar, mu * invvar, c0], dim=-1)   # (L, M, D, 3)
+    pad = (-M) % chunk
+    if pad:
+        fill = torch.zeros((L, pad, D, 3), dtype=A.dtype, device=A.device)
+        fill[..., 2] = -math.inf
+        A = torch.cat([A, fill], dim=1)
+    # (L*D, M', 3) and (L*D, 3, S): batch over (l, d)
+    A = A.permute(0, 2, 1, 3).reshape(L * D, M + pad, 3)
+    F = torch.stack([values ** 2, values, torch.ones_like(values)], dim=2)
+    A = A.to(torch.bfloat16).float()
+    F = F.reshape(L * D, 3, S).to(torch.bfloat16).float()
+    acc = torch.zeros((L * D, S), dtype=torch.float32, device=values.device)
+    for m0 in range(0, M + pad, chunk):
+        ld = torch.bmm(A[:, m0:m0 + chunk], F)                  # (L*D, C, S)
+        acc += torch.exp(ld).sum(dim=1)
+    return (torch.log(acc) + G.repeat_interleave(D)[:, None]).reshape(L, D, S)
 
 
 def build():

@@ -9,18 +9,29 @@ never recompiled. PyTorch runs eagerly and compiles nothing per shape, so
 requests run at their own size: there is no padding to strip, and outputs
 equal an unpadded call by construction.
 
-Export of the encoder/decoder (`export_artifacts`, StableHLO in the JAX
-package) arrives later through `torch.export` (ROADMAP.md).
+`export_artifacts` / `load_artifact` (disvae_tpu/serve.py:92-128, StableHLO
+through `jax.export` there) write the encoder and decoder as `torch.export`
+programs at a fixed batch, `encoder.pt2` and `decoder.pt2` next to the
+checkpoint. They hold the weights and run without this package's model
+code: `load_artifact(path)(x)`.
 
 Usage:
     sm = ServingModel.from_dir("results/btcvae_dsprites", device="cuda")
     mu, logvar = sm.encode(images)
     imgs = sm.decode(mu)
+    export_artifacts("results/btcvae_dsprites", batch_size=64)
+    python -m disvae_tpu_torch.serve btcvae_dsprites [-b 64] [--no-cuda]
 """
+
+import os
+import sys
 
 import numpy as np
 import torch
+from torch import nn
 
+from disvae_tpu_torch.ops import precision
+from disvae_tpu_torch.utils.helpers import get_device
 from disvae_tpu_torch.utils.modelIO import load_model
 
 
@@ -63,3 +74,76 @@ class ServingModel:
         gen = torch.Generator().manual_seed(seed)
         z = torch.randn((n, self.model.latent_dim), generator=gen)
         return self.decode(z.numpy())
+
+
+class _Encode(nn.Module):
+    def __init__(self, vae):
+        super().__init__()
+        self.vae = vae
+
+    def forward(self, x):
+        return self.vae.encode(x)
+
+
+class _Decode(_Encode):
+    def forward(self, z):
+        return self.vae.decode(z)
+
+
+def export_artifacts(directory, batch_size=64, out_dir=None, device=None):
+    """Export the trained encoder ((B, H, W, C) -> (mu, logvar)) and decoder
+    ((B, latent_dim) -> (B, H, W, C)) of a results directory at batch
+    `batch_size` on `device` (CPU by default), traced under the `highest`
+    precision policy (float32, no autocast), as `encoder.pt2` and
+    `decoder.pt2`. Returns their paths."""
+    model = load_model(directory, device=device)
+    device = next(model.parameters()).device
+    out_dir = out_dir or directory
+    c, h, w = model.img_size
+    specs = {
+        "encoder.pt2": (_Encode(model), torch.zeros((batch_size, h, w, c),
+                                                    device=device)),
+        "decoder.pt2": (_Decode(model),
+                        torch.zeros((batch_size, model.latent_dim),
+                                    device=device)),
+    }
+    before = precision.current()
+    precision.configure("highest")
+    paths = []
+    try:
+        for name, (module, example) in specs.items():
+            program = torch.export.export(module, (example,), strict=False)
+            path = os.path.join(out_dir, name)
+            torch.export.save(program, path)
+            paths.append(path)
+    finally:
+        precision.configure(before)
+    return paths
+
+
+def load_artifact(path):
+    """Load an exported `.pt2` program as a callable module."""
+    return torch.export.load(path).module()
+
+
+def _main(argv):
+    import argparse
+    parser = argparse.ArgumentParser(
+        description="Export a trained run's encoder/decoder as torch.export "
+                    "serving artifacts.")
+    parser.add_argument("name", help="run name under results/")
+    parser.add_argument("-b", "--batch-size", type=int, default=64)
+    parser.add_argument("--res-dir", default="results")
+    parser.add_argument("--no-cuda", action="store_true",
+                        help="Export on the CPU. Without it a CUDA device is "
+                             "required.")
+    args = parser.parse_args(argv)
+    paths = export_artifacts(os.path.join(args.res_dir, args.name),
+                             batch_size=args.batch_size,
+                             device=get_device(args.no_cuda))
+    for p in paths:
+        print(p)
+
+
+if __name__ == "__main__":
+    _main(sys.argv[1:])

@@ -18,8 +18,17 @@ Reference quirks kept, as in the JAX package:
   JAX evaluator's order (marginal first, then each factor's slices), so
   equal seeds give equal draws in both packages.
 
-The HBM-resident encode feed, the device mesh and `fast_entropies` wait
-for later slices (ROADMAP.md).
+The metrics encode reads the dataset from the device when it is resident
+(`resident`, as the JAX evaluator's `_use_resident` / `_slice_resident`):
+the wire-format images are on the device once (the Trainer's upload handed
+in, or data/resident.py under "always") and each encode batch is a slice
+of them, decompressed on the device as the streamed batches are, so the
+results are bit-identical to streaming. Unlike the JAX evaluator, "auto"
+builds no upload of its own: on the H100 a single eval's upload costs
+more than the streamed feed it replaces (PERF.md), so only a handed-in
+upload is worth reading. `fast_entropies` takes the bf16 estimator
+`ops.log_qz.log_qz_fast` instead of `log_qz` (`--fast-metrics`). The
+device mesh waits for the data-parallel slice (ROADMAP.md).
 """
 
 import logging
@@ -30,8 +39,9 @@ from timeit import default_timer
 import numpy as np
 import torch
 
+from disvae_tpu_torch.data.resident import ResidentData, wire_shape
 from disvae_tpu_torch.models.discriminator import Discriminator
-from disvae_tpu_torch.ops.log_qz import log_qz
+from disvae_tpu_torch.ops.log_qz import log_qz, log_qz_fast
 from disvae_tpu_torch.ops.losses import coef_vector
 from disvae_tpu_torch.train.steps import _decompress_batch, make_eval_step
 from disvae_tpu_torch.utils.modelIO import save_metadata
@@ -45,19 +55,36 @@ _SAMPLE_CHUNK = 2000
 
 
 class Evaluator:
-    """Evaluate a trained VAE (an nn.Module on its device) under a loss."""
+    """Evaluate a trained VAE (an nn.Module on its device) under a loss.
+
+    `resident` is a prebuilt `ResidentData` of the same images (the
+    Trainer's upload), "always" (upload the dataset for the metrics
+    encode), or "auto", "never" or None (stream the batches).
+    `fast_entropies` selects the bf16 entropy estimator.
+    """
 
     def __init__(self, model, loss_f,
                  logger=logging.getLogger(__name__),
                  save_dir="results",
                  scramble_quirk=True,
-                 metrics_seed=None):
+                 metrics_seed=None,
+                 fast_entropies=False,
+                 resident="auto"):
         self.model = model.eval()
         self.device = next(model.parameters()).device
         self.loss_f = loss_f
         self.logger = logger
         self.save_dir = save_dir
         self.scramble_quirk = scramble_quirk
+        self.fast_entropies = fast_entropies
+        if resident is None or isinstance(resident, str):
+            if resident not in (None, "auto", "always", "never"):
+                raise ValueError("resident: {!r}".format(resident))
+            self._build_upload, self._prebuilt = resident == "always", None
+        else:
+            self._build_upload, self._prebuilt = False, resident
+        self._resident = None
+        self._resident_ds = None  # the dataset `_resident` holds
         self._np_rng = np.random.RandomState(
             0 if metrics_seed is None else metrics_seed)
         disc = None
@@ -76,6 +103,46 @@ class Evaluator:
 
     def _to_device(self, batch):
         return torch.from_numpy(np.asarray(batch)).to(self.device)
+
+    def _use_resident(self, dataloader):
+        """Adopt the prebuilt upload, or build one under "always", for this
+        loader. Only an unshuffled loader over a dataset with a wire format
+        reads in the device order; an upload is keyed on the dataset's
+        identity."""
+        ds = getattr(dataloader, "dataset", None)
+        if ds is None or getattr(dataloader, "shuffle", False) \
+                or not hasattr(ds, "get_batch_raw"):
+            return False
+        if ds is self._resident_ds:
+            return True
+        if self._prebuilt is not None and self._resident_ds is None:
+            # adopted for the first loader whose size and wire shape match;
+            # the caller vouches for the images
+            if self._prebuilt.n != len(ds):
+                return False
+            expected, got = wire_shape(ds), tuple(self._prebuilt.wire.shape)
+            if got != expected:
+                raise ValueError(
+                    "Prebuilt resident upload has wire shape {} but this "
+                    "loader's dataset would pack to {}: it was built from "
+                    "another dataset or wire format.".format(got, expected))
+            if self._prebuilt.wire.device != self.device:
+                raise ValueError("Prebuilt resident upload is on {}, the "
+                                 "model on {}".format(
+                                     self._prebuilt.wire.device,
+                                     self.device))
+            self._resident, self._resident_ds = self._prebuilt, ds
+            return True
+        if not self._build_upload:
+            return False
+        self._resident = ResidentData.maybe(ds, self.device,
+                                            limit_bytes=float("inf"))
+        if self._resident is None:
+            return False
+        self._resident_ds = ds
+        self.logger.info("Metrics encode: device-resident dataset feed (one "
+                         "upload; batches are slices).")
+        return True
 
     def __call__(self, data_loader, is_metrics=False, is_losses=True):
         start = default_timer()
@@ -201,9 +268,17 @@ class Evaluator:
     def _compute_q_zCx(self, dataloader):
         """Encode the entire dataset on the device. Returns (samples (N, D),
         (mu, logvar)); in eval mode samples == mu."""
+        if self._use_resident(dataloader):
+            wire = self._resident.wire
+            n, B = len(dataloader.dataset), dataloader.batch_size
+            if getattr(dataloader, "drop_last", False):
+                n -= n % B
+            batches = (wire[i:i + B] for i in range(0, n, B))
+        else:
+            batches = (self._to_device(x) for x, _ in dataloader)
         mus, logvars = [], []
-        for x, _ in dataloader:
-            batch = _decompress_batch(self._to_device(x), self.model.img_size)
+        for x in batches:
+            batch = _decompress_batch(x, self.model.img_size)
             mu, logvar = self.model.encode(batch)
             mus.append(mu)
             logvars.append(logvar)
@@ -269,12 +344,14 @@ class Evaluator:
                                    logvar.contiguous(), M, S)
 
     def _entropy_sweep(self, values, mu, logvar, M, S):
-        """-mean_s (log q(values) - log M) per (l, d), one log_qz call per
-        sample chunk. values (L, D, S), mu/logvar (L, M, D)."""
+        """-mean_s (log q(values) - log M) per (l, d), one log_qz (or
+        log_qz_fast) call per sample chunk. values (L, D, S), mu/logvar
+        (L, M, D)."""
         log_M = math.log(M)
         H = np.zeros(values.shape[:2], np.float64)
         for s0 in range(0, S, _SAMPLE_CHUNK):
             v = values[:, :, s0:s0 + _SAMPLE_CHUNK].contiguous()
-            lq = log_qz(v, mu, logvar)  # (L, D, s_chunk)
+            lq = (log_qz_fast if self.fast_entropies else log_qz)(
+                v, mu, logvar)  # (L, D, s_chunk)
             H += (log_M - lq).sum(dim=2).cpu().numpy().astype(np.float64)
         return H / S

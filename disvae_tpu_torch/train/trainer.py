@@ -150,6 +150,11 @@ class Trainer:
     def model(self):
         return self.state.model
 
+    @property
+    def resident_data(self):
+        """The device-resident upload of the last training set, or None."""
+        return self._resident
+
     # ------------------------------------------------------------------
     # checkpoint / resume (full training state, atomic)
     # ------------------------------------------------------------------

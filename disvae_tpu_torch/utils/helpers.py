@@ -59,6 +59,17 @@ def derive_seeds(seed, n):
             >> np.uint64(1)]
 
 
+def get_device(no_cuda):
+    """The CLIs' device: the CPU when `--no-cuda` asks for it, else CUDA,
+    and no CPU carry-on when no GPU is visible."""
+    if no_cuda:
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError("No CUDA device is visible; pass --no-cuda to "
+                           "run on the CPU.")
+    return torch.device("cuda")
+
+
 def get_n_param(model):
     """Number of trainable parameters of an nn.Module."""
     return sum(p.numel() for p in model.parameters() if p.requires_grad)
@@ -72,6 +83,17 @@ def set_seed(seed, device="cpu"):
     np.random.seed(seed)
     random.seed(seed)
     return torch.Generator(device=device).manual_seed(seed)
+
+
+def check_bounds(value, type=float, lb=-float("inf"), ub=float("inf"),
+                 is_inclusive=True, name="value"):
+    """Argparse type-checker that enforces numeric bounds."""
+    value = type(value)
+    in_bound = (lb <= value <= ub) if is_inclusive else (lb < value < ub)
+    if not in_bound:
+        raise argparse.ArgumentTypeError(
+            "{}={} outside of bounds ({},{})".format(name, value, lb, ub))
+    return value
 
 
 class FormatterNoDuplicate(argparse.ArgumentDefaultsHelpFormatter):

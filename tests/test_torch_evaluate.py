@@ -206,14 +206,15 @@ def test_cli_eval_only_matches_jax_cli(tmp_path, monkeypatch):
                               / "metrics.log")
 
 
-@pytest.mark.parametrize("flags", [[], ["--fast-metrics"],
-                                   ["--model-parallel", "2"]])
+@pytest.mark.parametrize("flags", [
+    ["--model-parallel", "2"],
+    ["--is-eval-only", "--fast-metrics", "--model-parallel", "2"],
+    ["--is-eval-only", "--model-parallel", "4"]])
 def test_cli_refuses_paths_not_ported(tmp_path, monkeypatch, flags):
+    """`--model-parallel` > 1 is the one path left to port (the gif and
+    `--fast-metrics` run now), refused before any work in training and in
+    evaluation."""
     monkeypatch.chdir(tmp_path)
-    if not flags:
-        flags = []  # training without --no-viz-gif (the gif)
-    else:
-        flags = ["--is-eval-only"] + flags
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_cli.main(port_cli.parse_arguments(["run", "--no-cuda"]
                                                + flags))

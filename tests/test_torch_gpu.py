@@ -132,3 +132,110 @@ def test_btcvae_train_step_default_policy_with_hook(cuda):
     for name, p in model.named_parameters():
         assert p.grad is not None and torch.isfinite(p.grad).all().item(), \
             name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("img_size", [(1, 64, 64), (3, 64, 64)])
+def test_viz_grids_on_card_match_cpu(cuda, tmp_path, img_size):
+    """Traversals, reconstructions and posterior-gif frames rendered on the
+    card against the CPU, within 1 in uint8, under ``highest``."""
+    import copy
+    from disvae_tpu_torch.models.vae import init_specific_model
+    from disvae_tpu_torch.utils.visualize import Visualizer
+    model = init_specific_model("Burgess", img_size, 10,
+                                generator=torch.Generator().manual_seed(0))
+    with open(tmp_path / "train_losses.log", "w") as f:
+        f.write("Epoch,Loss,Value\n" + "".join(
+            "0,kl_loss_{},{}\n".format(d, (3 * d) % 10) for d in range(10)))
+    c, h, w = img_size
+    data = np.random.RandomState(1).rand(8, h, w, c).astype(np.float32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        viz = Visualizer(copy.deepcopy(model).to(dev), "celeba",
+                         str(tmp_path), save_images=False,
+                         loss_of_interest="kl_loss_", max_traversal=2)
+        out[dev] = [viz.traversals(is_reorder_latents=True, n_per_latent=7,
+                                   n_latents=6),
+                    viz.traversals(data=data[:1], n_per_latent=7),
+                    viz.reconstruct(data, size=(2, 4))]
+        out[dev] += viz.gif_traversals(data[:3], n_latents=4, n_per_gif=5)
+    for a, b in zip(out["cpu"], out["cuda"]):
+        assert a.shape == b.shape
+        assert np.abs(a.astype(np.int32) - b.astype(np.int32)).max() <= 1
+
+
+def _fast_error_bound(values, mu, logvar):
+    """The bf16 error bound of `log_qz_fast` (its docstring), weighted by
+    the mixture: with |e_m| <= (2^-7 + 2^-16) T_m, T_m = sum_k |A_k F_k|,
+    |logsumexp(ld + e) - logsumexp(ld)| <= log sum_m w_m exp(|e_m|), w the
+    softmax of the exact ld. Float64 over the (L, M, D, S) brick."""
+    lv = logvar.double()
+    invvar = torch.exp(-lv)
+    peak = -0.5 * (lv + np.log(2 * np.pi))
+    c0 = peak - 0.5 * mu.double() ** 2 * invvar - peak.amax(dim=(1, 2),
+                                                            keepdim=True)
+    a2, a1, a0 = (t[..., None] for t in (-0.5 * invvar,
+                                         mu.double() * invvar, c0))
+    v = values.double()[:, None]                      # (L, 1, D, S)
+    w = torch.softmax(a2 * v ** 2 + a1 * v + a0, dim=1)
+    T = a2.abs() * v ** 2 + a1.abs() * v.abs() + a0.abs()
+    return torch.log((w * torch.exp((2 ** -7 + 2 ** -16) * T)).sum(dim=1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("logvar_shift", [0.0, -2.0])
+def test_log_qz_fast_on_card_near_kernel(cuda, logvar_shift):
+    """The bf16 estimator on the card against itself on the CPU to 1e-5
+    (the same bf16-rounded operands, float32 sums in another order), and
+    against K3 within its bf16 error bound at every point, plus ATOL for
+    K3's own error. Unit-scale posteriors (the largest error about 0.020
+    on the CPU, past the JAX docstring's 2e-2) and tight ones (about
+    0.20: the bound grows with v^2 / var)."""
+    rng = np.random.RandomState(2)
+    mu = torch.from_numpy(rng.randn(2, 1000, 3).astype(np.float32))
+    logvar = torch.from_numpy((rng.randn(2, 1000, 3) * 0.3
+                               + logvar_shift).astype(np.float32))
+    values = torch.from_numpy(rng.randn(2, 3, 300).astype(np.float32))
+    args = [t.to(cuda) for t in (values, mu, logvar)]
+    got = port.log_qz_fast(*args, chunk=256)
+    cpu = port.log_qz_fast(values, mu, logvar, chunk=256)
+    assert (got.cpu() - cpu).abs().max().item() <= 1e-5
+    err = (got - port.log_qz(*args)).abs().cpu().double()
+    assert (err <= _fast_error_bound(values, mu, logvar) + ATOL).all()
+
+
+@pytest.mark.gpu
+def test_gif_frame_leaves_train_steps_unchanged(cuda, tmp_path):
+    """step, gif frame, step gives the parameters of step, step, bit for
+    bit (``highest``: deterministic cuDNN), and the model stays in train
+    mode."""
+    from disvae_tpu_torch.models.vae import init_specific_model
+    from disvae_tpu_torch.ops import losses as PL
+    from disvae_tpu_torch.train.state import create_train_state
+    from disvae_tpu_torch.train.steps import make_optimizer, make_train_step
+    from disvae_tpu_torch.utils.visualize import GifTraversalsTraining
+    cfg = PL.get_loss_f("btcvae", rec_dist="bernoulli", reg_anneal=0,
+                        btcvae_A=1, btcvae_B=6.4, btcvae_G=1, n_data=1000)
+    batch = torch.from_numpy((np.random.RandomState(2).rand(32, 64, 64, 3)
+                              * 255).astype(np.uint8)).to(cuda)
+    states = []
+    for _ in range(2):
+        model = init_specific_model(
+            "Burgess", (3, 64, 64), 10,
+            generator=torch.Generator().manual_seed(0), device=cuda)
+        states.append(create_train_state(
+            model, make_optimizer(model.parameters(), 5e-4),
+            torch.Generator(device=cuda).manual_seed(1), loss_cfg=cfg))
+    step = make_train_step(cfg)
+    gif = GifTraversalsTraining(states[0].model, "celeba", str(tmp_path))
+    for i, state in enumerate(states):
+        step(state, batch)
+        if i == 0:
+            gif(state.model)
+            assert state.model.training
+        step(state, batch)
+    torch.cuda.synchronize()
+    for (k, a), b in zip(states[0].model.state_dict().items(),
+                         states[1].model.state_dict().values()):
+        assert torch.equal(a, b), k
+    assert len(gif.images) == 1 and gif.images[0].shape == (662, 662, 3)
