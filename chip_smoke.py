@@ -3,6 +3,11 @@
 GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --convt-only [--package-root DIR]
+
+`--convt-only` runs phases 1, 2 and 4 only; `--package-root` imports
+disvae_tpu_torch from another checkout (e.g. a `git archive` of the parent
+commit unpacked under build/), to time its K1/K2 in the same call.
 
 Phases (any failure raises and exits non-zero; there is no CPU carry-on):
 
@@ -15,14 +20,18 @@ Phases (any failure raises and exits non-zero; there is no CPU carry-on):
 3. K3 vs plain PyTorch at the MIG/AAM sweeps' real shapes (marginal L=1,
    M=737,280; conditional L=3, M=245,760 and L=32, M=23,040; D=10,
    S=2,000): max |kernel - plain| <= 1e-4, both times (CUDA events, warm,
-   median).
+   median) and the kernel's L2-cold time at the marginal shape.
 4. K1/K2 (the final decoder convT's backward) vs plain at the training
    path's shapes: x (256, 32, 32, 32) with dy (256, 3, 64, 64) and
    (128, ...), Cout = 1 at (256, 32, 16, 16), and (6, 8, 4, 4) -> Cout 5.
    float32: max |d| / max |ref| <= 1e-5; bf16 operands: <= 1e-3 against
    the plain version on the same operands (float32 sums) and <= 3e-2
-   against cuDNN's float32 backward. Times at b256 celeba in bf16: K1, K2,
-   their plain versions, cuDNN's backward of the layer.
+   against cuDNN's float32 backward. Times at b256 celeba in bf16, L2-cold
+   (CUDA events; 256 MB written and read between runs) and warm (device
+   time by kernel, torch.profiler): K1, K2, cuDNN's dW-only, dx-only and
+   whole backward of the layer (under `default`); the plain versions warm.
+   Each kernel's bound (bytes or operations over the H100's peaks) and its
+   L2-cold ratio to its cuDNN call.
 5. Eval path: the full 737,280-image dsprites lattice fabricated with
    tools/fabricate_dsprites.py, a seeded-init Burgess 64x64x1 latent-10
    checkpoint written with the port's save_model, then the port's CLI
@@ -62,7 +71,10 @@ Phases (any failure raises and exits non-zero; there is no CPU carry-on):
    traversals re-rendered on the CPU agree with the card's within 1; the
    process never imported PIL, imageio or pandas.
 
-Its last two lines are JSON: the kernels' record, then
+Its last two lines are JSON: the kernels' record (per kernel `ms`, the
+L2-cold time, `warm_ms`, `plain_ms`, `bound_ms`/`bound_us`, `bound_by`,
+`library_ms`, the L2-cold time of cuDNN's call for the same gradient or
+null, and for K1/K2 `cudnn_dw_ms`/`cudnn_dx_ms`), then
 {"ok": true, "device": {...}}. Scratch data lives under build/ and is
 removed at the end.
 """
@@ -103,25 +115,43 @@ FAST_MIG_ATOL, FAST_AAM_ATOL = 1e-3, 1e-2
 # (L, M, D, S) of the entropy sweeps at dsprites scale
 KERNEL_SHAPES = [(1, 737280, 10, 2000), (3, 245760, 10, 2000),
                  (32, 23040, 10, 2000)]
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense, 700 W):
+# device memory bytes/s, bf16 tensor-core FLOP/s, float32 FLOP/s outside
+# the tensor cores; and the SFU's exps/s, 16 per SM per clock at the
+# 1.98 GHz boost clock
+PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
+PEAK_EXP = 132 * 16 * 1.98e9
+L2_FLUSH_BYTES = 256 << 20  # written, read between L2-cold runs: 5 L2s
 
 
 def log(*args):
     print(*args, flush=True)
 
 
-def time_ms(fn, reps):
-    """Median device time of `fn` over `reps` warm runs (CUDA events)."""
+def time_ms(fn, reps, flush=None):
+    """Device time of one run of `fn` (CUDA events). Warm: the median of
+    three event pairs, each around `reps` runs enqueued back to back, over
+    `reps`. L2-cold with `flush`, a buffer larger than the L2 cache: the
+    median of `reps` event pairs around one run each, the buffer written
+    and then read before each pair (so the L2 holds clean lines of it,
+    whose eviction costs the timed run no write-back), outside the events;
+    the flush keeps the card busy while the host enqueues the run."""
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(reps if flush is not None else 3):
+        if flush is not None:
+            flush.zero_()
+            flush.sum()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(1 if flush is not None else reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end)
+                     / (1 if flush is not None else reps))
     return statistics.median(times)
 
 
@@ -279,7 +309,17 @@ def phase_kernels(K):
                 L, M, D, S, err, ms, n / ms / 1e6, plain_ms))
         errs.append(err)
         if record is None:
-            record = {"ms": ms, "plain_ms": plain_ms}
+            # per log-density one exp on the SFU and 6 float32 FLOPs (the
+            # difference, an fma of its square, the running max's
+            # difference, the sum's fma); bytes: inputs and output once
+            nbytes = 4 * (2 * mu.numel() + values.numel() + got.numel())
+            record = {"ms": time_ms(lambda: K.log_qz(values, mu, logvar),
+                                    5, _flush()),
+                      "warm_ms": ms, "plain_ms": plain_ms, **_bound(
+                          nbytes, ops=[(n, PEAK_EXP), (6 * n, PEAK_F32)])}
+            log("log_qz at the marginal shape: L2-cold {:.3f} ms, bound "
+                "{:.3f} ms ({})".format(record["ms"], record["bound_ms"],
+                                        record["bound_by"]))
         del mu, logvar, values, got, ref
         torch.cuda.empty_cache()
     record["max_abs_err"] = max(errs)
@@ -289,6 +329,104 @@ def phase_kernels(K):
 def _rel(ref, got):
     return ((got.float() - ref.float()).abs().max()
             / ref.float().abs().max().clamp_min(1e-30)).item()
+
+
+def _flush():
+    return torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
+
+
+def _bound(nbytes, ops):
+    """The least time of a kernel on the card: its bytes (each input read
+    once, each output written once) over the memory rate, against each
+    (count, peak rate) of its operations; the larger bounds it."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = max(n / rate for n, rate in ops) * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _device_ms(fn, calls=10):
+    """Device time of one warm call of `fn`: its kernels' device times
+    summed over `calls` back-to-back calls in a torch.profiler window, over
+    `calls` (no host gaps), and the kernels [(name, ms, launches)]; CUDA
+    events around back-to-back calls where the profiler sees no device
+    events."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    _, top = _device_profile(prof)
+    if not top:
+        return time_ms(fn, calls), []
+    return sum(ms for _, ms, _ in top) / calls, top
+
+
+def _convt_times(C, x32, w, dy32):
+    """K1, K2, their plain versions and cuDNN's single-gradient calls at
+    b256 celeba with bf16 operands: L2-cold medians (CUDA events) and warm
+    device times (profiler). cuDNN runs under the `default` policy that the
+    hook replaces it in."""
+    from disvae_tpu_torch.ops.precision import configure
+    x, dy, wb = x32.bfloat16(), dy32.bfloat16(), w.bfloat16()
+    cout = w.shape[1]
+
+    def cudnn(mask):
+        return lambda: torch.ops.aten.convolution_backward(
+            dy, x, wb, [cout] if mask[2] else None, [2, 2], [1, 1], [1, 1],
+            True, [0, 0], 1, mask)
+
+    fns = {"K1": lambda: C.convt3_dw(x, dy),
+           "K2": lambda: C.convt3_dx(dy, w),
+           "cuDNN dW": cudnn([False, True, False]),
+           "cuDNN dx": cudnn([True, False, False]),
+           "cuDNN dx+dw+db": cudnn([True, True, True])}
+    flush = _flush()
+    configure("default")
+    try:
+        cold = {k: time_ms(f, 20, flush) for k, f in fns.items()}
+        warm, kernels = {}, {}
+        for k, f in fns.items():
+            warm[k], kernels[k] = _device_ms(f)
+    finally:
+        configure("highest")
+    del flush
+    plain = {"K1": time_ms(lambda: C.convt3_dw_plain(x, dy, torch.bfloat16),
+                           10),
+             "K2": time_ms(lambda: C.convt3_dx_plain(dy, w, torch.bfloat16),
+                           10)}
+    log("K1/K2 times at b256 celeba, bf16, ms (L2-cold / warm device): "
+        + ", ".join("{} {:.4f} / {:.4f}".format(k, cold[k], warm[k])
+                    for k in fns)
+        + "; plain K1 {:.4f}, plain K2 {:.4f}".format(plain["K1"],
+                                                     plain["K2"]))
+    for k in ("K1", "K2"):
+        log("{} warm, by kernel: {}".format(k, "; ".join(
+            "{:.2f} us {}".format(ms * 1e3 / n, name[:60])
+            for name, ms, n in kernels[k]) or "not measured (no device "
+            "events)"))
+    # bytes, each read or written once: K1 reads x and dy (bf16) and writes
+    # dW (float32); K2 reads dy and w (float32) and writes dx (bf16). The
+    # product's multiply-adds on the bf16 tensor cores.
+    flops = 2 * x.numel() * 16 * cout
+    nbytes = {"K1": 2 * (x.numel() + dy.numel()) + 4 * w.numel(),
+              "K2": 2 * (dy.numel() + x.numel()) + 4 * w.numel()}
+    lib = {"K1": "cuDNN dW", "K2": "cuDNN dx"}
+    record = {"cudnn_dw_ms": cold["cuDNN dW"], "cudnn_dx_ms": cold["cuDNN dx"]}
+    for k, name in (("K1", "convt3_dw"), ("K2", "convt3_dx")):
+        r = _bound(nbytes[k], ops=[(flops, PEAK_BF16)])
+        r.update(ms=cold[k], warm_ms=warm[k], plain_ms=plain[k],
+                 library_ms=cold[lib[k]], warm_library_ms=warm[lib[k]],
+                 bound_us=r["bound_ms"] * 1e3)
+        record[name] = r
+        log("{} ({}): L2-cold {:.4f} ms = {:.2f}x {} ({:.4f} ms), {:.1%} of "
+            "its {:.2f} us bound ({})".format(
+                k, name, cold[k], cold[k] / cold[lib[k]], lib[k],
+                cold[lib[k]], r["bound_ms"] / cold[k], r["bound_us"],
+                r["bound_by"]))
+    return record
 
 
 def phase_convt_kernels(C):
@@ -339,25 +477,7 @@ def phase_convt_kernels(C):
         log("K1/K2 (n, h, cin, cout) = {}: max |d|/max |ref| {}".format(
             (n, h, cin, cout), "; ".join(errs)))
         if record is None:  # b256 celeba, bf16 operands as on the path
-            x, dy, wb = x32.bfloat16(), dy32.bfloat16(), w.bfloat16()
-            t = {
-                "K1": time_ms(lambda: C.convt3_dw(x, dy), 20),
-                "K2": time_ms(lambda: C.convt3_dx(dy, w), 20),
-                "plain K1": time_ms(
-                    lambda: C.convt3_dw_plain(x, dy, torch.bfloat16), 10),
-                "plain K2": time_ms(
-                    lambda: C.convt3_dx_plain(dy, w, torch.bfloat16), 10),
-                "cuDNN dx+dw+db": time_ms(
-                    lambda: torch.ops.aten.convolution_backward(
-                        dy, x, wb, [cout], [2, 2], [1, 1], [1, 1], True,
-                        [0, 0], 1, [True, True, True]), 20),
-            }
-            log("K1/K2 times at b256 celeba, bf16, ms (median of warm runs):"
-                " " + ", ".join("{} {:.4f}".format(k, v)
-                                for k, v in t.items()))
-            record = {"convt3_dw": {"ms": t["K1"], "plain_ms": t["plain K1"]},
-                      "convt3_dx": {"ms": t["K2"], "plain_ms": t["plain K2"]},
-                      "cudnn_ms": t["cuDNN dx+dw+db"]}
+            record = _convt_times(C, x32, w, dy32)
         del x32, w, dy32
         torch.cuda.empty_cache()
     for k in worst:
@@ -932,14 +1052,31 @@ def phase_viz(scratch, runs, datasets):
     log("viz path: PIL, imageio and pandas never imported")
 
 
-def main():
+def main(argv=None):
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--convt-only", action="store_true",
+                        help="build, check and time K1/K2 only (phases 1, "
+                        "2 and 4), then stop")
+    parser.add_argument("--package-root", default=REPO,
+                        help="import disvae_tpu_torch from this directory "
+                        "(another checkout, to time its kernels in the same "
+                        "call); default: this script's")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
+    sys.path.insert(0, os.path.abspath(args.package_root))
     from disvae_tpu_torch.ops import convt_bwd as C
     from disvae_tpu_torch.ops import log_qz as K
+    log("disvae_tpu_torch from {}".format(os.path.dirname(os.path.dirname(
+        os.path.dirname(os.path.abspath(C.__file__))))))
 
     phase_device()
+    if args.convt_only:
+        phase_build({"convt3_bwd": C})
+        phase_convt_kernels(C)
+        return 0
     phase_build({"log_qz": K, "convt3_bwd": C})
     record = phase_kernels(K)
     convt = phase_convt_kernels(C)
@@ -961,18 +1098,19 @@ def main():
         shutil.rmtree(scratch, ignore_errors=True)
 
     convt_src = "disvae_tpu_torch/csrc/convt3_bwd.cu"
+    cudnn = {k: convt[k] for k in ("cudnn_dw_ms", "cudnn_dx_ms")}
     log(json.dumps({"kernels": [
         dict(name="log_qz", route="cuda",
              source="disvae_tpu_torch/csrc/log_qz.cu",
              replaces="disvae_tpu/ops/pallas_kernels.py:44",
-             launches=launches, max_abs_err=record["max_abs_err"],
-             ms=record["ms"], plain_ms=record["plain_ms"]),
+             launches=launches, library_ms=None,
+             bound_us=record["bound_ms"] * 1e3, **record),
         dict(name="convt3_dw", route="cuda", source=convt_src,
              replaces="disvae_tpu/ops/pallas_convt_bwd.py:71",
-             launches=dw_launches, **convt["convt3_dw"]),
+             launches=dw_launches, **convt["convt3_dw"], **cudnn),
         dict(name="convt3_dx", route="cuda", source=convt_src,
              replaces="disvae_tpu/ops/pallas_convt_bwd.py:108",
-             launches=dx_launches, **convt["convt3_dx"])]}))
+             launches=dx_launches, **convt["convt3_dx"], **cudnn)]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

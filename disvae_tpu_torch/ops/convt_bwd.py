@@ -25,6 +25,7 @@ transposed and flipped in space (utils/torch_compat.py).
 """
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -114,7 +115,7 @@ def build():
 
 def _declare(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.disvae_convt3_dw_n_blocks.argtypes = [i] * 4
+    lib.disvae_convt3_dw_n_blocks.argtypes = [i] * 7
     lib.disvae_convt3_dw_n_blocks.restype = i
     lib.disvae_convt3_dw.argtypes = [i, p, p, p, p] + [i] * 6 + [p]
     lib.disvae_convt3_dw.restype = i
@@ -166,18 +167,38 @@ def _check_kernel(x, w, dy):
     return n, cin, h, wd, cout
 
 
+@functools.lru_cache(maxsize=None)
+def _dw_blocks(dtype, n, cin, h, wd, cout, device_index):
+    """Blocks of K1's first pass (rows of its scratch) on one card, from
+    the library (the bf16 kernel asks the occupancy calculator); 0 if the
+    shape exceeds the launch geometry. Cached: the train step asks for one
+    shape at every step."""
+    lib = cuda_build.library(_NAME, _declare)
+    with torch.cuda.device(device_index):
+        sm_count = torch.cuda.get_device_properties(
+            device_index).multi_processor_count
+        return lib.disvae_convt3_dw_n_blocks(dtype, n, cin, h, wd, cout,
+                                             sm_count)
+
+
 def convt3_dw(x, dy):
     """K1: dW (Cin, Cout, 4, 4) float32 of the transposed conv, from CUDA
-    x (N, Cin, H, W) and dy (N, Cout, 2H, 2W) of one dtype."""
+    x (N, Cin, H, W) and dy (N, Cout, 2H, 2W) of one dtype. In bf16 the
+    kernel works in row bands on the tensor cores: Cin <= 32, Cout <= 8,
+    and a band of one row must fit shared memory."""
     n, cin, h, wd = x.shape
     cout = dy.shape[1]
     dw = torch.empty((cin, cout, 4, 4), dtype=torch.float32, device=x.device)
     _check_kernel(x, dw, dy)
+    n_blocks = _dw_blocks(_DTYPES[x.dtype], n, cin, h, wd, cout,
+                          x.device.index)
+    if n_blocks < 1:
+        raise ValueError("convt3_dw: (N, Cin, H, W, Cout) = {} exceeds the "
+                         "launch geometry (bf16: Cin <= 32, Cout <= 8 and a "
+                         "one-row band in shared memory)".format(
+                             (n, cin, h, wd, cout)))
     lib = cuda_build.library(_NAME, _declare)
     with torch.cuda.device(x.device):
-        sm_count = torch.cuda.get_device_properties(
-            x.device).multi_processor_count
-        n_blocks = lib.disvae_convt3_dw_n_blocks(n, h, wd, sm_count)
         part = torch.empty((n_blocks, cin * 16 * cout), dtype=torch.float32,
                            device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -87,6 +87,84 @@ def test_plain_bf16_close_to_jax_autodiff(n, h, cin, cout):
         assert _rel_err(r, g) <= 3e-2, (name, _rel_err(r, g))
 
 
+def _dw_bands(x, dy, rows, n_blocks):
+    """dW as the bf16 K1 of csrc/convt3_bwd.cu computes it, in float64:
+    bands of `rows` x rows of one image (the last one ragged), walked by
+    `n_blocks` blocks with a stride of the grid. A band stages its x rows
+    and the dy rows 2a0 - 1 .. 2a1 that lie on the image (the halo rows
+    its neighbours stage too), rebuilds Q for rows a0 .. a1 with zeros off
+    the image (tap (pi * Cout + co) * 2 + pj at each position), pads
+    channels to 16s, taps to pairs of 8-tap tiles and its
+    positions to 16-position steps (x zero there, Q repeating the band's
+    last position), and adds, for each shift (du, dv), x against Q at
+    (a + 1 - du, b + 1 - dv). Each block's partial is in the dW layout;
+    the merge adds 32 interleaved groups of partials, then the groups."""
+    n, cin, h, w = x.shape
+    cout = dy.shape[1]
+    mt, nt = (1 if cin <= 16 else 2), (2 if 4 * cout <= 16 else 4)
+    per_image = -(-h // rows)
+    taps, co = [(0, 0), (0, 1), (1, 0), (1, 1)], torch.arange(cout)
+    x, dy = x.double(), dy.double()
+    parts = torch.zeros(n_blocks, cin, cout, 4, 4, dtype=torch.float64)
+    for blk in range(n_blocks):
+        acc = torch.zeros(4, mt * 16, nt * 8, dtype=torch.float64)
+        for band in range(blk, n * per_image, n_blocks):
+            img, a0 = band // per_image, band % per_image * rows
+            a1 = min(a0 + rows, h)
+            length = (a1 - a0) * w
+            steps = -(-length // 16)
+            xs = torch.zeros(mt * 16, steps * 16, dtype=torch.float64)
+            xs[:cin, :length] = x[img, :, a0:a1].reshape(cin, length)
+            ds = torch.zeros(cout, 2 * rows + 2, 2 * w, dtype=torch.float64)
+            r_lo, r_hi = max(2 * a0 - 1, 0), min(2 * a1, 2 * h - 1)
+            ds[:, r_lo - 2 * a0 + 1:r_hi - 2 * a0 + 2] = dy[img, :,
+                                                            r_lo:r_hi + 1]
+            il = torch.arange(a1 - a0 + 1)[:, None]
+            j = torch.arange(w + 1)[None, :]
+            q = torch.zeros(a1 - a0 + 1, w + 1, nt * 8, dtype=torch.float64)
+            for pi, pj in taps:  # tap (pi * Cout + co) * 2 + pj
+                r, c = 2 * (a0 + il) - pi, 2 * j - pj
+                on = (r >= 0) & (r < 2 * h) & (c >= 0) & (c < 2 * w)
+                v = ds[:, (2 * il - pi + 1).clamp(0, 2 * rows + 1),
+                       c.clamp(0, 2 * w - 1)] * on
+                q[..., (pi * cout + co) * 2 + pj] = v.permute(1, 2, 0)
+            k = torch.arange(steps * 16).clamp(max=length - 1)
+            ka, kb = k // w, k % w
+            for s in range(4):
+                du, dv = divmod(s, 2)
+                acc[s] += xs @ q[ka + 1 - du, kb + 1 - dv]
+        for s in range(4):
+            du, dv = divmod(s, 2)
+            for pi, pj in taps:
+                parts[blk, :, :, 3 - 2 * du - pi, 3 - 2 * dv - pj] = acc[
+                    s, :cin, (pi * cout + co) * 2 + pj]
+    groups = [parts[g::32].sum(0) for g in range(32)]
+    return sum(groups[1:], groups[0])
+
+
+# (n, h, cin, cout, rows, n_blocks): a band shorter than its 8 rows; whole
+# bands walked by fewer blocks; ragged last bands of 1 and 4 rows; Cin = 8
+# and Cout = 5 (channel and tap padding); W = 9 (a ragged 16-position step)
+BAND_CASES = [(1, 4, 32, 3, 8, 1), (3, 16, 32, 3, 8, 4), (3, 4, 8, 5, 3, 2),
+              (1, 16, 8, 5, 3, 5), (3, 12, 32, 1, 8, 3), (2, 9, 32, 3, 8, 3)]
+
+
+@pytest.mark.parametrize("n, h, cin, cout, rows, n_blocks", BAND_CASES)
+def test_dw_band_decomposition_matches_plain(n, h, cin, cout, rows,
+                                             n_blocks):
+    """The bf16 K1's band decomposition (staged rows, halo, padding of
+    taps, channels and positions, fixed-order sum of per-block partials),
+    re-enacted in torch, equals the plain K1 on the same bf16 operands to
+    1e-6 of max |ref| (float32 sums against float64)."""
+    rng = np.random.RandomState(n * 100 + h)
+    x = torch.from_numpy(rng.randn(n, cin, h, h).astype(np.float32))
+    dy = torch.from_numpy(rng.randn(n, cout, 2 * h, 2 * h).astype(np.float32))
+    x, dy = x.bfloat16(), dy.bfloat16()
+    ref = P.convt3_dw_plain(x, dy, torch.bfloat16)
+    got = _dw_bands(x, dy, rows, n_blocks)
+    assert _rel_err(ref.numpy(), got.numpy()) <= 1e-6
+
+
 def test_wrapper_takes_plain_version_on_cpu():
     _, t = _inputs(1, 2, 4, 8, 3)
     before = (P.convt3_dw.launches, P.convt3_dx.launches)

@@ -94,6 +94,50 @@ def test_convt3_kernels_match_plain(cuda, n, h, cin, cout, dtype):
     assert torch.equal(dw, C.convt3_dw(x, dy))
 
 
+# (n, h, cin, cout) of the bf16 K1's row bands (at most 8 rows a band):
+# H = 4 (one band, shorter than 8 rows), 16 (two whole bands), 12 and 20
+# (a ragged last band); Cin = 8 with Cout = 5 (channels padded to one
+# 16-channel m-tile, 20 taps to four 8-tap n-tiles); n = 1 and n = 3
+BAND_SHAPES = [(1, 4, 32, 3), (3, 4, 8, 5), (3, 16, 32, 3), (1, 16, 8, 5),
+               (3, 12, 32, 1), (1, 20, 8, 5)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n, h, cin, cout", BAND_SHAPES)
+def test_convt3_dw_bands_match_plain(cuda, n, h, cin, cout):
+    """The bf16 K1 (row bands staged with cp.async, mma.sync tiles)
+    against the plain version's float32 sums of the same bf16 operands:
+    max |d| / max |ref| <= 1e-3; a second launch gives the same bits (no
+    float atomics); one launch counted per call."""
+    from disvae_tpu_torch.ops import convt_bwd as C
+    rng = np.random.RandomState(n * 1000 + h * 10 + cout)
+    x = torch.from_numpy(rng.randn(n, cin, h, h).astype(np.float32))
+    dy = torch.from_numpy(rng.randn(n, cout, 2 * h, 2 * h).astype(np.float32))
+    x, dy = x.to(cuda).bfloat16(), dy.to(cuda).bfloat16()
+    before = C.convt3_dw.launches
+    dw = C.convt3_dw(x, dy)
+    torch.cuda.synchronize()
+    assert C.convt3_dw.launches == before + 1
+    assert dw.shape == (cin, cout, 4, 4) and dw.dtype == torch.float32
+    assert _rel(C.convt3_dw_plain(x, dy, torch.bfloat16), dw) <= 1e-3
+    for _ in range(3):
+        assert torch.equal(dw, C.convt3_dw(x, dy))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cin, cout", [(33, 3), (32, 9)])
+def test_convt3_dw_bands_reject_wide_channels(cuda, cin, cout):
+    """The bf16 K1's tiles hold Cin <= 32 and Cout <= 8: wider raises
+    before any launch."""
+    from disvae_tpu_torch.ops import convt_bwd as C
+    x = torch.zeros((2, cin, 8, 8), device=cuda, dtype=torch.bfloat16)
+    dy = torch.zeros((2, cout, 16, 16), device=cuda, dtype=torch.bfloat16)
+    before = C.convt3_dw.launches
+    with pytest.raises(ValueError, match="exceeds the launch geometry"):
+        C.convt3_dw(x, dy)
+    assert C.convt3_dw.launches == before
+
+
 @pytest.mark.gpu
 def test_btcvae_train_step_default_policy_with_hook(cuda):
     """A batch-16 celeba-shaped btcvae step under ``default`` (bf16
