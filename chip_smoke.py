@@ -4,10 +4,13 @@ GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --convt-only [--package-root DIR]
+    python3 chip_smoke.py --logqz-only [--package-root DIR]
 
-`--convt-only` runs phases 1, 2 and 4 only; `--package-root` imports
-disvae_tpu_torch from another checkout (e.g. a `git archive` of the parent
-commit unpacked under build/), to time its K1/K2 in the same call.
+`--convt-only` runs phases 1, 2 and 4 only, `--logqz-only` phases 1-3 for
+K3 only; `--package-root` imports disvae_tpu_torch from another checkout
+(e.g. a `git archive` of the parent commit unpacked under build/), to time
+its kernels in the same call. Another checkout's K3 is not held to the
+recompute counter (a K3 without that kernel has none).
 
 Phases (any failure raises and exits non-zero; there is no CPU carry-on):
 
@@ -16,11 +19,21 @@ Phases (any failure raises and exits non-zero; there is no CPU carry-on):
 2. Build: the CUDA sources disvae_tpu_torch/csrc/log_qz.cu and
    convt3_bwd.cu, one nvcc each, started together (into
    build/disvae_tpu_torch/), with compile times and ptxas register/spill
-   lines.
-3. K3 vs plain PyTorch at the MIG/AAM sweeps' real shapes (marginal L=1,
-   M=737,280; conditional L=3, M=245,760 and L=32, M=23,040; D=10,
-   S=2,000): max |kernel - plain| <= 1e-4, both times (CUDA events, warm,
-   median) and the kernel's L2-cold time at the marginal shape.
+   lines; the issue slots per log-density of K3's inner loop, by kind,
+   from its SASS (cuobjdump).
+3. K3 vs plain PyTorch at the six sweep shapes of one full-lattice eval
+   (L, M) = (1, 737,280), (3, 245,760), (6, 122,880), (40, 18,432) and
+   (32, 23,040) twice, D=10, S=2,000: max |kernel - plain| <= 1e-4 and two
+   calls bitwise equal; L2-cold and warm times at each (CUDA events) and
+   their sum over the eval's 30 launches; the plain version's time and
+   the warm device time by kernel (profiler) at the marginal shape, and
+   with `--logqz-only` the SM clock under load (nvidia-smi). Then the edge
+   inputs of tests/log_qz_cases.py (ragged M and S, tight posteriors,
+   samples 50 sigma from every component): within 1e-4 plus two float32
+   roundings of the result, bitwise repeatable, and the 50-sigma case
+   recomputed entry by entry (`log_qz.last_recomputed`). K3's bound is the
+   card's for the function, whatever the kernel: its exps split between
+   the SFU and the FMA pipe at the share that balances the two.
 4. K1/K2 (the final decoder convT's backward) vs plain at the training
    path's shapes: x (256, 32, 32, 32) with dy (256, 3, 64, 64) and
    (128, ...), Cout = 1 at (256, 32, 16, 16), and (6, 8, 4, 4) -> Cout 5.
@@ -37,7 +50,10 @@ Phases (any failure raises and exits non-zero; there is no CPU carry-on):
    checkpoint written with the port's save_model, then the port's CLI
    `<name> --is-eval-only --is-metrics -l btcvae`. Checks finite MIG,
    AAM and test losses and that the run launched K3; then the entropy
-   estimate on a 4,096-image subset, kernel against the CPU plain version.
+   estimate on a 4,096-image subset, kernel against the CPU plain version;
+   then the entropy phase again in a torch.profiler window (wall, device
+   busy, device time by kernel), and its seconds beside K3's 30 launches
+   timed alone.
 6. Serving: ServingModel.from_dir answers encode (1, 7, 57 images),
    decode, reconstruct and sample(8).
 7. Training path: a 25,637-image celeba subset (tools/fabricate_celeba.py;
@@ -74,11 +90,14 @@ Phases (any failure raises and exits non-zero; there is no CPU carry-on):
 Its last two lines are JSON: the kernels' record (per kernel `ms`, the
 L2-cold time, `warm_ms`, `plain_ms`, `bound_ms`/`bound_us`, `bound_by`,
 `library_ms`, the L2-cold time of cuDNN's call for the same gradient or
-null, and for K1/K2 `cudnn_dw_ms`/`cudnn_dx_ms`), then
+null; for K1/K2 `cudnn_dw_ms`/`cudnn_dx_ms`; for K3 `shapes`, the
+per-shape times, `eval_sum_ms`/`eval_sum_warm_ms` and `entropy_seconds`),
+then
 {"ok": true, "device": {...}}. Scratch data lives under build/ and is
 removed at the end.
 """
 
+import functools
 import json
 import math
 import os
@@ -112,15 +131,23 @@ EXPORT_ATOL = 1e-5  # exported program vs ServingModel, float32 both
 VIZ_ROWS, VIZ_COLS, VIZ_GIF_FRAMES = 6, 7, 15
 # |dMIG|, |dAAM| of `--fast-metrics` against K3 (tests/test_torch_fast_metrics)
 FAST_MIG_ATOL, FAST_AAM_ATOL = 1e-3, 1e-2
-# (L, M, D, S) of the entropy sweeps at dsprites scale
-KERNEL_SHAPES = [(1, 737280, 10, 2000), (3, 245760, 10, 2000),
-                 (32, 23040, 10, 2000)]
+# (L, M) of the six entropy sweeps of one full-lattice dsprites MIG/AAM
+# eval: the marginal, then one per factor (the L slices of a factor batched,
+# M = 737,280 / L). Each sweep is LAUNCHES_PER_SWEEP log_qz launches of
+# S = 2,000 samples at D = 10: 30 launches, each 1.47e10 log-densities.
+EVAL_SWEEPS = [(1, 737280), (3, 245760), (6, 122880), (40, 18432),
+               (32, 23040), (32, 23040)]
+EVAL_D, EVAL_S, LAUNCHES_PER_SWEEP = 10, 2000, 5
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense, 700 W):
 # device memory bytes/s, bf16 tensor-core FLOP/s, float32 FLOP/s outside
 # the tensor cores; and the SFU's exps/s, 16 per SM per clock at the
 # 1.98 GHz boost clock
 PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
-PEAK_EXP = 132 * 16 * 1.98e9
+BOOST_MHZ = 1980
+PEAK_EXP = 132 * 16 * BOOST_MHZ * 1e6
+# An exp taken on the FMA pipe instead of the SFU: range reduction and a
+# degree-6 polynomial, 6 fmas and 3 adds, 15 float32 FLOPs
+EXP_FLOPS_ON_FMA = 15
 L2_FLUSH_BYTES = 256 << 20  # written, read between L2-cold runs: 5 L2s
 
 
@@ -254,7 +281,8 @@ def phase_device():
 
 
 def phase_build(modules):
-    """One nvcc per CUDA source, all started together."""
+    """One nvcc per CUDA source, all started together. Returns {name:
+    library path}."""
     out = {}
 
     def run(name, mod):
@@ -280,50 +308,264 @@ def phase_build(modules):
             if "Compiling entry" in line or "registers" in line \
                     or "spill" in line:
                 log("  ptxas:", line.strip())
+    return {name: out[name][0][0] for name in modules}
 
 
-def phase_kernels(K):
-    """Kernel vs plain at the sweeps' real shapes. Returns the kernel
-    record (the marginal shape's times, the largest error)."""
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(SEED)
-    errs, record = [], None
-    for L, M, D, S in KERNEL_SHAPES:
-        mu = torch.from_numpy(rng.standard_normal((L, M, D), np.float32))
-        logvar = torch.from_numpy(
-            0.3 * rng.standard_normal((L, M, D), np.float32))
-        values = torch.from_numpy(rng.standard_normal((L, D, S), np.float32))
-        mu, logvar, values = (t.to(dev) for t in (mu, logvar, values))
+def _log_qz_cases():
+    """K3's input generator and edge cases, shared with its tests
+    (tests/log_qz_cases.py, numpy only)."""
+    tests = os.path.join(REPO, "tests")
+    if tests not in sys.path:
+        sys.path.append(tests)
+    import log_qz_cases
+    return log_qz_cases
+
+
+def _log_qz_inputs(seed, L, M, D, S, kind="unit"):
+    return [torch.from_numpy(a).cuda() for a in
+            _log_qz_cases().log_qz_inputs(seed, L, M, D, S, kind)]
+
+
+def _log_qz_bound(n, nbytes):
+    """K3's least time for n log-densities on the card. Each needs 5
+    float32 FLOPs (the difference, its square, an fma, the sum's add) and
+    one exp, which the SFU gives at PEAK_EXP or the FMA pipe computes in
+    EXP_FLOPS_ON_FMA FLOPs. The least time over the share f of exps on the
+    FMA pipe, of max(n (1 - f) / PEAK_EXP, n (5 + 15 f) / PEAK_F32), comes
+    where the two are equal. Returns (the `_bound` record, f)."""
+    f = (PEAK_F32 - 5 * PEAK_EXP) / (PEAK_F32 + EXP_FLOPS_ON_FMA * PEAK_EXP)
+    f = min(1.0, max(0.0, f))
+    return _bound(nbytes, ops=[
+        (n * (1 - f), PEAK_EXP),
+        (n * (5 + EXP_FLOPS_ON_FMA * f), PEAK_F32)]), f
+
+
+def _log_qz_tol(ref):
+    """ATOL, plus two float32 roundings of the result: at |log q| ~ 1,250
+    (50 sigma) one ulp is 1.2e-4, so no two float32 computations agree to
+    1e-4 there; at |log q| ~ 10 this adds 2.4e-6."""
+    return ATOL + 2 * torch.finfo(torch.float32).eps * ref.abs()
+
+
+def phase_kernels(K, strict=True, clock=False):
+    """K3 vs plain at the eval's six sweep shapes and at the edge inputs,
+    bitwise repeatable; L2-cold and warm times at every sweep shape and
+    their sum over the 30 launches of one eval. `strict`: the edge inputs
+    that underflow the reference must take the recompute kernel (a package
+    whose K3 has no such kernel, timed with --package-root, is not held to
+    that). `clock`: read the SM clock under load at the marginal shape.
+    Returns the kernel record (the marginal shape's times, per-shape times,
+    the largest error)."""
+    flush = _flush()
+    errs, shapes, record, timed = [], [], None, {}
+    for L, M in EVAL_SWEEPS:
+        D, S = EVAL_D, EVAL_S
+        if (L, M) not in timed:
+            values, mu, logvar = _log_qz_inputs(SEED + L, L, M, D, S)
+            got = K.log_qz(values, mu, logvar)
+            ref = K.log_qz_plain(values, mu, logvar)
+            torch.cuda.synchronize()
+            err = (got - ref).abs().max().item()
+            if not (torch.isfinite(got).all().item() and err <= ATOL
+                    and torch.equal(got, K.log_qz(values, mu, logvar))):
+                raise AssertionError(
+                    "log_qz kernel vs plain at {}: max abs err {} > {} or "
+                    "not repeatable".format((L, M, D, S), err, ATOL))
+            fn = functools.partial(K.log_qz, values, mu, logvar)
+            timed[L, M] = {"L": L, "M": M, "max_abs_err": err,
+                           "ms": time_ms(fn, 20, flush),
+                           "warm_ms": time_ms(fn, 5)}
+            errs.append(err)
+            if record is None:
+                n = L * M * D * S
+                plain_ms = time_ms(
+                    lambda: K.log_qz_plain(values, mu, logvar), 3)
+                warm_dev, kernels = _device_ms(fn, 5)
+                # bytes: the inputs and the output once
+                bound, fma = _log_qz_bound(n, 4 * (
+                    2 * mu.numel() + values.numel() + got.numel()))
+                record = {"ms": timed[L, M]["ms"],
+                          "warm_ms": timed[L, M]["warm_ms"],
+                          "plain_ms": plain_ms, **bound}
+                log("log_qz bound at the marginal shape: {:.4f} ms ({}), "
+                    "{:.1%} of the exps on the FMA pipe ({:.4f} ms with "
+                    "every exp on the SFU)".format(
+                        record["bound_ms"], record["bound_by"], fma,
+                        n / PEAK_EXP * 1e3))
+                log("log_qz at the marginal shape: warm device time {:.3f} "
+                    "ms by kernel: {}".format(warm_dev, "; ".join(
+                        "{:.3f} ms {}".format(ms / n_, name[:50])
+                        for name, ms, n_ in kernels) or "not measured"))
+                if clock:
+                    mhz, watts, n_smp = clock_under_load(fn)
+                    log("log_qz at the marginal shape, run back to back: SM "
+                        "clock {:.0f} MHz, {:.0f} W (medians of {} "
+                        "nvidia-smi samples; the peaks assume {} MHz)".format(
+                            mhz, watts, n_smp, BOOST_MHZ))
+            del values, mu, logvar, got, ref
+            torch.cuda.empty_cache()
+        t = dict(timed[L, M], launches_per_eval=LAUNCHES_PER_SWEEP)
+        shapes.append(t)
+        log("log_qz L={} M={} D={} S={}: max_abs_err {:.3e}, L2-cold {:.4f} "
+            "ms, warm {:.4f} ms, {:.1%} of the bound ({:.1f} G "
+            "log-densities/s)".format(
+                L, M, D, S, t["max_abs_err"], t["ms"], t["warm_ms"],
+                record["bound_ms"] / t["ms"], L * M * D * S / t["ms"] / 1e6))
+    del flush
+    record["eval_sum_ms"] = sum(LAUNCHES_PER_SWEEP * t["ms"] for t in shapes)
+    record["eval_sum_warm_ms"] = sum(LAUNCHES_PER_SWEEP * t["warm_ms"]
+                                     for t in shapes)
+    record["shapes"] = shapes
+    log("log_qz over the 30 launches of one eval: L2-cold {:.2f} ms, warm "
+        "{:.2f} ms; plain at the marginal shape {:.3f} ms; bound {:.3f} ms "
+        "({}) per launch".format(record["eval_sum_ms"],
+                                 record["eval_sum_warm_ms"],
+                                 record["plain_ms"], record["bound_ms"],
+                                 record["bound_by"]))
+
+    for name, (kind, shape, seed) in _log_qz_cases().CARD_EDGE_CASES.items():
+        values, mu, logvar = _log_qz_inputs(seed, *shape, kind=kind)
         got = K.log_qz(values, mu, logvar)
+        n_rec = getattr(K.log_qz, "last_recomputed", None)
+        n_rec = None if n_rec is None else int(n_rec.item())
         ref = K.log_qz_plain(values, mu, logvar)
+        again = K.log_qz(values, mu, logvar)
         torch.cuda.synchronize()
-        err = (got - ref).abs().max().item()
-        if not (torch.isfinite(got).all().item() and err <= ATOL):
-            raise AssertionError("log_qz kernel vs plain at {}: max abs err "
-                                 "{} > {}".format((L, M, D, S), err, ATOL))
-        ms = time_ms(lambda: K.log_qz(values, mu, logvar), 5)
-        plain_ms = time_ms(lambda: K.log_qz_plain(values, mu, logvar), 3)
-        n = L * M * D * S
-        log("log_qz L={} M={} D={} S={}: max_abs_err {:.3e}, kernel {:.3f} "
-            "ms ({:.1f} G log-densities/s), plain {:.3f} ms".format(
-                L, M, D, S, err, ms, n / ms / 1e6, plain_ms))
-        errs.append(err)
-        if record is None:
-            # per log-density one exp on the SFU and 6 float32 FLOPs (the
-            # difference, an fma of its square, the running max's
-            # difference, the sum's fma); bytes: inputs and output once
-            nbytes = 4 * (2 * mu.numel() + values.numel() + got.numel())
-            record = {"ms": time_ms(lambda: K.log_qz(values, mu, logvar),
-                                    5, _flush()),
-                      "warm_ms": ms, "plain_ms": plain_ms, **_bound(
-                          nbytes, ops=[(n, PEAK_EXP), (6 * n, PEAK_F32)])}
-            log("log_qz at the marginal shape: L2-cold {:.3f} ms, bound "
-                "{:.3f} ms ({})".format(record["ms"], record["bound_ms"],
-                                        record["bound_by"]))
-        del mu, logvar, values, got, ref
-        torch.cuda.empty_cache()
+        err = (got - ref).abs()
+        log("log_qz edge input {} {}: max abs err {:.3e} (|ref| up to "
+            "{:.1f}), entries recomputed {} of {}".format(
+                name, tuple(mu.shape), err.max().item(),
+                ref.abs().max().item(), n_rec, got.numel()))
+        if not (err <= _log_qz_tol(ref)).all().item() \
+                or not torch.equal(got, again):
+            raise AssertionError("log_qz edge input {}: max abs err {} or "
+                                 "not repeatable".format(name,
+                                                         err.max().item()))
+        if strict and (n_rec is None
+                       or (kind == "far" and n_rec != got.numel())):
+            raise AssertionError("log_qz edge input {}: {} entries took the "
+                                 "recompute kernel".format(name, n_rec))
+        errs.append(err.max().item())
     record["max_abs_err"] = max(errs)
     return record
+
+
+def clock_under_load(fn, seconds=2.0):
+    """The SM clock and power draw (nvidia-smi, sampled about every 0.2 s)
+    while `fn` runs back to back for about `seconds`. Returns (median MHz,
+    median W, samples)."""
+    samples, done = [], threading.Event()
+
+    def sample():
+        while not done.is_set():
+            out = subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                 "--format=csv,noheader,nounits"], capture_output=True,
+                text=True).stdout.split("\n")[0].split(",")
+            samples.append((float(out[0]), float(out[1])))
+            done.wait(0.2)
+
+    fn()
+    torch.cuda.synchronize()
+    t = threading.Thread(target=sample)
+    t0 = time.perf_counter()
+    t.start()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+    done.set()
+    t.join()
+    busy = samples[1:] or samples  # the first may precede the load
+    return (statistics.median(s[0] for s in busy),
+            statistics.median(s[1] for s in busy), len(samples))
+
+
+def sass_inner_loop(lib_path, kernel, per_lds=None):
+    """The instructions of `kernel`'s hottest loop in the built library,
+    from `cuobjdump -sass`: the innermost backward branch whose body holds
+    MUFU.EX2, the one with the most of them. Its log-densities are its
+    shared-memory loads times `per_lds` (each load stages one component for
+    that many samples), or its MUFU.EX2 count without `per_lds` (a kernel
+    that spends one SFU exp per density). Returns ({kind: count per
+    log-density}, body lines, log-densities), or None where cuobjdump is
+    missing. Kinds: FP32 arithmetic, MUFU, LDS, select/compare (FSETP,
+    FSEL, SEL, FMNMX, PLOP3), integer/branch, other."""
+    import re
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        tool = shutil.which("cuobjdump")
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, check=True).stdout
+    funcs = re.split(r"\n\s*Function : ", sass)
+    body = next(f for f in funcs[1:] if kernel in f.split("\n", 1)[0])
+    insts, labels = [], {}
+    for line in body.split("\n"):
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            labels[m.group(1)] = len(insts)
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(.*?)\s*;", line)
+        if m:
+            insts.append((int(m.group(1), 16), m.group(2)))
+    by_addr = {a: i for i, (a, _) in enumerate(insts)}
+
+    def opcode(text):
+        return re.sub(r"^@!?U?P\w+\s+", "", text).split()[0]
+
+    loops = []
+    for i, (_, text) in enumerate(insts):
+        m = re.search(r"\((\.L_x_\d+)\)|0x([0-9a-f]+)", text)
+        if not opcode(text).startswith("BRA") or m is None:
+            continue
+        j = labels.get(m.group(1)) if m.group(1) else by_addr.get(
+            int(m.group(2), 16))
+        if j is not None and j <= i:
+            n_exp = sum(opcode(t).startswith("MUFU.EX2")
+                        for _, t in insts[j:i + 1])
+            if n_exp:
+                loops.append((j, i, n_exp))
+    inner = [lp for lp in loops if not any(
+        o != lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops)]
+    j, i, n_exp = max(inner, key=lambda lp: lp[2])
+    counts = {}
+    for _, text in insts[j:i + 1]:
+        op = opcode(text)
+        if op.startswith("MUFU"):
+            kind = "MUFU"
+        elif op.startswith("LDS"):
+            kind = "LDS"
+        elif op.split(".")[0] in ("FSETP", "FSEL", "SEL", "FMNMX", "PLOP3"):
+            kind = "select/compare"
+        elif op.split(".")[0] in ("FADD", "FMUL", "FFMA"):
+            kind = "FP32"
+        elif op.startswith(("LD", "ST", "BAR", "NOP", "DEPBAR", "F", "H")):
+            kind = "other"
+        else:
+            kind = "integer/branch"
+        counts[kind] = counts.get(kind, 0) + 1
+    n = counts.get("LDS", 0) * per_lds if per_lds else n_exp
+    per_density = {k: v / n for k, v in sorted(counts.items())}
+    per_density["all"] = (i + 1 - j) / n
+    return per_density, [t for _, t in insts[j:i + 1]], n
+
+
+def phase_sass(path, per_lds):
+    """Issue slots per log-density in log_qz_partial_kernel's inner loop."""
+    got = sass_inner_loop(path, "log_qz_partial_kernel", per_lds)
+    if got is None:
+        log("SASS: cuobjdump not found (not measured)")
+        return
+    per_density, lines, n = got
+    log("SASS log_qz_partial_kernel inner loop: {} instructions for {} "
+        "log-densities; per log-density: {}".format(
+            len(lines), n, ", ".join("{} {:.3f}".format(k, v)
+                                     for k, v in per_density.items())))
+    for t in lines:
+        log("  sass:", t)
 
 
 def _rel(ref, got):
@@ -550,7 +792,44 @@ def phase_main_path(K, scratch):
             or helpers["cond_entropies"].shape != (5, 10):
         raise AssertionError("unexpected entropy shapes")
     subset_check(evaluator.model, datasets)
+    entropy_profile(evaluator, datasets)
     return exp_dir, datasets, launches, metrics, timings
+
+
+def entropy_profile(evaluator, datasets):
+    """The eval's entropy phase again (marginal and conditional sweeps) on
+    a fresh encode of the lattice, in a torch.profiler window: its wall,
+    the device's busy time and the device time by kernel."""
+    ds = datasets.get_dataset("dsprites")()
+    samples, params = evaluator._compute_q_zCx(
+        datasets.DataLoader(ds, batch_size=1000))
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        evaluator._estimate_latent_entropies(samples, params)
+        evaluator._estimate_H_zCv(samples, params, ds.lat_sizes,
+                                  ds.lat_names)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, top = _device_profile(prof)
+    log("entropy phase profiled: wall {:.3f} s, device busy {:.3f} s "
+        "(idle share {:.1%})".format(wall, busy, 1 - busy / wall)
+        if busy else "entropy phase profiled: wall {:.3f} s, no device "
+        "events (device time not measured)".format(wall))
+    for k, ms, n in top[:8]:
+        log("  {:9.3f} ms {:5d} calls  {}".format(ms, n, k[:100]))
+    # the phase's host work that launches nothing: the evaluator's sample
+    # draws, numpy permutations in the JAX evaluator's order
+    rng = np.random.RandomState(SEED)
+    t0 = time.perf_counter()
+    rng.permutation(len(ds))
+    for L in ds.lat_sizes:
+        for _ in range(L):
+            rng.permutation(len(ds) // L)
+    log("entropy phase's sample draws alone (numpy permutations, host): "
+        "{:.3f} s".format(time.perf_counter() - t0))
 
 
 def subset_check(model, datasets):
@@ -1058,6 +1337,9 @@ def main(argv=None):
     parser.add_argument("--convt-only", action="store_true",
                         help="build, check and time K1/K2 only (phases 1, "
                         "2 and 4), then stop")
+    parser.add_argument("--logqz-only", action="store_true",
+                        help="build, check and time K3 only (phases 1-3 and "
+                        "the SASS of its inner loop), then stop")
     parser.add_argument("--package-root", default=REPO,
                         help="import disvae_tpu_torch from this directory "
                         "(another checkout, to time its kernels in the same "
@@ -1066,19 +1348,27 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.abspath(args.package_root))
+    root = os.path.abspath(args.package_root)
+    sys.path.insert(0, root)
     from disvae_tpu_torch.ops import convt_bwd as C
     from disvae_tpu_torch.ops import log_qz as K
     log("disvae_tpu_torch from {}".format(os.path.dirname(os.path.dirname(
         os.path.dirname(os.path.abspath(C.__file__))))))
+    strict = root == REPO
 
     phase_device()
     if args.convt_only:
         phase_build({"convt3_bwd": C})
         phase_convt_kernels(C)
         return 0
-    phase_build({"log_qz": K, "convt3_bwd": C})
-    record = phase_kernels(K)
+    if args.logqz_only:
+        paths = phase_build({"log_qz": K})
+        phase_sass(paths["log_qz"], getattr(K, "SAMPLES_PER_THREAD", None))
+        log(json.dumps(phase_kernels(K, strict, clock=True)))
+        return 0
+    paths = phase_build({"log_qz": K, "convt3_bwd": C})
+    phase_sass(paths["log_qz"], getattr(K, "SAMPLES_PER_THREAD", None))
+    record = phase_kernels(K, strict)
     convt = phase_convt_kernels(C)
     build_dir = os.path.join(REPO, "build")
     os.makedirs(build_dir, exist_ok=True)
@@ -1086,6 +1376,10 @@ def main(argv=None):
     try:
         exp_dir, datasets, launches, metrics, timings = phase_main_path(
             K, scratch)
+        log("entropy phase {:.3f} s against K3's 30 launches timed alone: "
+            "{:.3f} s L2-cold, {:.3f} s warm".format(
+                timings["entropy_seconds"], record["eval_sum_ms"] / 1e3,
+                record["eval_sum_warm_ms"] / 1e3))
         phase_eval_variants(K, scratch, exp_dir, datasets, metrics, timings)
         phase_serving(exp_dir, datasets)
         dw_launches, dx_launches = phase_train(C, scratch)
@@ -1104,7 +1398,8 @@ def main(argv=None):
              source="disvae_tpu_torch/csrc/log_qz.cu",
              replaces="disvae_tpu/ops/pallas_kernels.py:44",
              launches=launches, library_ms=None,
-             bound_us=record["bound_ms"] * 1e3, **record),
+             bound_us=record["bound_ms"] * 1e3,
+             entropy_seconds=timings["entropy_seconds"], **record),
         dict(name="convt3_dw", route="cuda", source=convt_src,
              replaces="disvae_tpu/ops/pallas_convt_bwd.py:71",
              launches=dw_launches, **convt["convt3_dw"], **cudnn),

@@ -19,7 +19,10 @@ disvae_tpu/train/evaluate.py `_streaming_log_qz`. Three pieces live here:
   ctypes (ops/cuda_build.py);
 * `log_qz` — the wrapper. It takes the plain version only for CPU tensors.
   For CUDA tensors it launches the kernel or raises; nothing falls back.
-  `log_qz.launches` counts its kernel launches.
+  `log_qz.launches` counts its launches (each one the kernel's four
+  passes: the per-(l, d) reference, the partial sums, the merge and the
+  recompute of underflowed entries); `log_qz.last_recomputed` holds the
+  last launch's count of recomputed entries on the card.
 
 `log_qz_fast` is the `--fast-metrics` estimator, the counterpart of
 disvae_tpu/ops/pallas_kernels.py `log_qz_mxu` (XLA ops there, stock
@@ -39,6 +42,11 @@ from disvae_tpu_torch.ops.math import log_density_gaussian
 _COMP_CHUNK = 2048
 
 _NAME = "log_qz"
+# The kernel's geometry (csrc/log_qz.cu): samples per segment of its work
+# split (kTileS), per thread (kR), and how many of a segment's first samples
+# take the FMA-pipe exp2 (kPoly * kThreads). `_declare` checks the library's.
+TILE_S, SAMPLES_PER_THREAD, FMA_SAMPLES = 1024, 8, 128
+GEOMETRY = (TILE_S, SAMPLES_PER_THREAD, FMA_SAMPLES)
 _LOG2PI = math.log(2 * math.pi)
 
 
@@ -123,10 +131,29 @@ def build():
 
 def _declare(lib):
     lib.disvae_log_qz_f32.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     lib.disvae_log_qz_f32.restype = ctypes.c_int
-    lib.disvae_log_qz_n_split.argtypes = [ctypes.c_int] * 5
-    lib.disvae_log_qz_n_split.restype = ctypes.c_int
+    lib.disvae_log_qz_blocks_per_sm.restype = ctypes.c_int
+    lib.disvae_log_qz_geometry.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.disvae_log_qz_geometry.restype = None
+    geometry = (ctypes.c_int * 3)()
+    lib.disvae_log_qz_geometry(geometry)
+    if tuple(geometry) != GEOMETRY:
+        raise RuntimeError("csrc/log_qz.cu has (kTileS, kR, kPoly * "
+                           "kThreads) = {}, the wrapper assumes {}".format(
+                               tuple(geometry), GEOMETRY))
+
+
+def _plan(L, M, D, S, n_blocks):
+    """The kernel's work split (csrc/log_qz.cu): segments are (l, d,
+    sample tile of TILE_S); the nseg * M component steps are laid out as one
+    line and block b of `n_blocks` takes steps [b * chunk, (b + 1) * chunk).
+    A segment meets at most `pieces` blocks. Returns (n_stiles, chunk,
+    pieces)."""
+    n_stiles = -(-S // TILE_S)
+    chunk = -(-(L * D * n_stiles * M) // n_blocks)
+    return n_stiles, chunk, (M - 1) // chunk + 2
 
 
 def _check(values, mu, logvar):
@@ -163,26 +190,41 @@ def log_qz(values, mu, logvar):
     if values.device.type != "cuda":
         raise ValueError("log_qz: no kernel for device {}".format(
             values.device))
-    if L * D > 65535 or L * D * S >= 2 ** 31 or M >= 2 ** 31:
+    # the G kernel's grid.y is L; flat (l, d, s) and component indices are
+    # int32
+    if L > 65535 or L * D * S >= 2 ** 31 or M >= 2 ** 31:
         raise ValueError("log_qz: (L, M, D, S) = {} exceeds the launch "
                          "geometry".format((L, M, D, S)))
     lib = cuda_build.library(_NAME, _declare)
-    with torch.cuda.device(values.device):
-        sm_count = torch.cuda.get_device_properties(
-            values.device).multi_processor_count
-        n_split = lib.disvae_log_qz_n_split(L, M, D, S, sm_count)
-        out = torch.empty((L, D, S), dtype=torch.float32,
-                          device=values.device)
-        part = torch.empty((2, n_split, L, D, S), dtype=torch.float32,
-                           device=values.device)
-        stream = torch.cuda.current_stream(values.device).cuda_stream
+    dev = values.device
+    with torch.cuda.device(dev):
+        sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+        per_sm = lib.disvae_log_qz_blocks_per_sm()
+        if per_sm <= 0:
+            raise RuntimeError("log_qz: the occupancy query gave {}".format(
+                per_sm))
+        n_blocks = per_sm * sm_count
+        n_stiles, chunk, pieces = _plan(L, M, D, S, n_blocks)
+        out = torch.empty((L, D, S), dtype=torch.float32, device=dev)
+        part = torch.empty((L * D * n_stiles * pieces * TILE_S,),
+                           dtype=torch.float32, device=dev)
+        # the flag count, G's order-preserving bits, the flag list
+        ints = torch.empty((1 + L * D + L * D * S,), dtype=torch.int32,
+                           device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.disvae_log_qz_f32(
             values.data_ptr(), mu.data_ptr(), logvar.data_ptr(),
-            out.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
-            L, M, D, S, n_split, stream)
+            out.data_ptr(), part.data_ptr(), ints.data_ptr(),
+            L, M, D, S, n_blocks, n_stiles, chunk, pieces, 4 * sm_count,
+            stream)
     cuda_build.check(lib, err, "log_qz")
     log_qz.launches += 1
+    log_qz.last_recomputed = ints[:1]
     return out
 
 
 log_qz.launches = 0
+# the number of (l, d, s) entries the last launch recomputed with an exact
+# max: a 1-element int32 tensor on the card (reading it synchronizes), None
+# before any launch
+log_qz.last_recomputed = None

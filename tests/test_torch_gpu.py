@@ -8,8 +8,9 @@ machine that has only PyTorch:
     python -m pytest tests/test_torch_gpu.py --noconftest -q
 
 Tolerances: K3, 1e-4 absolute on log densities (the kernel sums in another
-order than the plain version, and uses the fast exp); K1/K2, as each test
-states.
+order than the plain version, and uses approximate exps), plus two float32
+roundings of the result where |log q| is large enough that one ulp exceeds
+1e-4; K1/K2, as each test states.
 """
 
 import numpy as np
@@ -17,6 +18,7 @@ import pytest
 import torch
 
 from disvae_tpu_torch.ops import log_qz as port
+from log_qz_cases import CARD_EDGE_CASES, log_qz_inputs
 
 ATOL = 1e-4
 
@@ -33,20 +35,42 @@ def cuda():
 @pytest.mark.gpu
 @pytest.mark.parametrize("L, M, D, S", [(1, 700, 3, 300),
                                         (3, 5000, 10, 2000),
-                                        (32, 257, 10, 513)])
+                                        (32, 257, 10, 513),
+                                        (7000, 3, 10, 5)])
 def test_log_qz_kernel_matches_plain(cuda, L, M, D, S):
-    """Ragged M and S, marginal and batched; one launch counted per call."""
-    rng = np.random.RandomState(4)
-    mu = torch.from_numpy(rng.randn(L, M, D).astype(np.float32)).to(cuda)
-    logvar = torch.from_numpy(
-        (0.3 * rng.randn(L, M, D)).astype(np.float32)).to(cuda)
-    values = torch.from_numpy(rng.randn(L, D, S).astype(np.float32)).to(cuda)
+    """Ragged M and S, marginal and batched, and L * D over 65,535 (no
+    grid dimension of the launch spans L * D); one launch counted per
+    call."""
+    values, mu, logvar = (torch.from_numpy(x).to(cuda)
+                          for x in log_qz_inputs(4, L, M, D, S))
     before = port.log_qz.launches
     got = port.log_qz(values, mu, logvar)
     torch.cuda.synchronize()
     assert port.log_qz.launches == before + 1
     ref = port.log_qz_plain(values, mu, logvar)
     assert (got - ref).abs().max().item() <= ATOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(CARD_EDGE_CASES))
+def test_log_qz_kernel_edge_inputs(cuda, name):
+    """Tight posteriors, ragged shapes and 50-sigma samples against the
+    plain version: max |d| <= 1e-4 plus two float32 roundings of the
+    result (one ulp is 1.2e-4 at the far case's |log q| ~ 1,250). The far
+    case takes the recompute kernel for every entry, the others for none
+    (`log_qz.last_recomputed`, the device's flag count); two calls give the
+    same bits."""
+    kind, shape, seed = CARD_EDGE_CASES[name]
+    values, mu, logvar = (torch.from_numpy(x).to(cuda)
+                          for x in log_qz_inputs(seed, *shape, kind=kind))
+    got = port.log_qz(values, mu, logvar)
+    n_rec = port.log_qz.last_recomputed.item()
+    ref = port.log_qz_plain(values, mu, logvar)
+    tol = ATOL + 2 * torch.finfo(torch.float32).eps * ref.abs()
+    assert ((got - ref).abs() <= tol).all().item()
+    assert n_rec == (got.numel() if name == "far" else 0)
+    assert torch.equal(got, port.log_qz(values, mu, logvar))
+    assert port.log_qz.last_recomputed.item() == n_rec
 
 
 # (n, h, cin, cout): odd Cout, tiny and ragged spatial sizes, batches that
@@ -246,6 +270,81 @@ def test_log_qz_fast_on_card_near_kernel(cuda, logvar_shift):
     assert (got.cpu() - cpu).abs().max().item() <= 1e-5
     err = (got - port.log_qz(*args)).abs().cpu().double()
     assert (err <= _fast_error_bound(values, mu, logvar) + ATOL).all()
+
+
+def _resume_runs(tmp_path, device):
+    """btcvae on 64 celeba-shaped images, b32, through the Trainer (resident
+    feed): 4 epochs straight, and 2 epochs, a resumed Trainer, 2 more."""
+    from disvae_tpu_torch.data import datasets as PD
+    from disvae_tpu_torch.models.vae import init_specific_model
+    from disvae_tpu_torch.ops import losses as PL
+    from disvae_tpu_torch.train.trainer import Trainer
+    cfg = PL.get_loss_f("btcvae", rec_dist="bernoulli", reg_anneal=0,
+                        btcvae_A=1, btcvae_B=6.4, btcvae_G=1, n_data=64)
+    ds = PD.ArrayDataset((np.random.RandomState(2).rand(64, 64, 64, 3)
+                          * 255).astype(np.uint8))
+
+    def trainer(name, **kw):
+        model = init_specific_model(
+            "Burgess", (3, 64, 64), 10,
+            generator=torch.Generator().manual_seed(0), device=device)
+        return Trainer(model, cfg, lr=5e-4, seed=1, is_progress_bar=False,
+                       save_dir=str(tmp_path / name), **kw)
+
+    def loader():
+        return PD.DataLoader(ds, batch_size=32, shuffle=True, seed=0)
+
+    straight = trainer("straight")
+    straight(loader(), epochs=4, checkpoint_every=1)
+    trainer("resumed")(loader(), epochs=2, checkpoint_every=1)
+    resumed = trainer("resumed", resume=True)
+    assert resumed._start_epoch == 2
+    resumed(loader(), epochs=4, checkpoint_every=1)
+    torch.cuda.synchronize()
+    return straight.state, resumed.state
+
+
+def _resume_diff(a, b):
+    """max |d| over the parameters and Adam's moments of two train states;
+    their step counters and Adam's step counts must be equal."""
+    assert a.step == b.step == 8
+    worst = 0.0
+    for (k, x), y in zip(a.model.state_dict().items(),
+                         b.model.state_dict().values()):
+        worst = max(worst, (x - y).abs().max().item())
+    sa, sb = a.optimizer.state_dict()["state"], b.optimizer.state_dict()[
+        "state"]
+    assert sa.keys() == sb.keys()
+    for i in sa:
+        assert float(sa[i]["step"]) == float(sb[i]["step"]) == 8
+        for k in ("exp_avg", "exp_avg_sq"):
+            worst = max(worst, (sa[i][k] - sb[i][k]).abs().max().item())
+    return worst
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_resume_on_card_bitexact(cuda, tmp_path, precision):
+    """`--resume` on the card: 4 epochs straight equal 2 epochs + resume +
+    2 epochs bit for bit in the parameters, Adam's moments and the step
+    counters; under ``highest`` (deterministic cuDNN) and under
+    ``default`` (bf16 autocast, cuDNN's own algorithm choice) with the
+    K1/K2 hook, as the flagship trains."""
+    from disvae_tpu_torch.models import burgess
+    from disvae_tpu_torch.ops import convt_bwd as C
+    from disvae_tpu_torch.ops.precision import configure
+    configure(precision)
+    if precision == "default":
+        burgess.set_final_convt_impl(C.conv_transpose2d_pl)
+    try:
+        before = C.convt3_dw.launches
+        straight, resumed = _resume_runs(tmp_path, cuda)
+        hooked = C.convt3_dw.launches - before
+    finally:
+        burgess.set_final_convt_impl(burgess.conv_transpose2d)
+        configure("highest")
+    assert hooked == (16 if precision == "default" else 0)  # 8 steps a run
+    assert _resume_diff(straight, resumed) == 0.0
 
 
 @pytest.mark.gpu
