@@ -17,7 +17,8 @@ Phases (any failure raises and exits non-zero; there is no CPU carry-on):
 1. Device: the card's name and power limit (nvidia-smi), the `highest`
    float32 policy (TF32 off for matmuls and cuDNN convs).
 2. Build: the CUDA sources disvae_tpu_torch/csrc/log_qz.cu and
-   convt3_bwd.cu, one nvcc each, started together (into
+   convt3_bwd.cu, and the floor kernel of disvae_tpu_torch/probe_convt.py
+   (always this checkout's), one nvcc each, started together (into
    build/disvae_tpu_torch/), with compile times and ptxas register/spill
    lines; the issue slots per log-density of K3's inner loop, by kind,
    from its SASS (cuobjdump).
@@ -44,7 +45,9 @@ Phases (any failure raises and exits non-zero; there is no CPU carry-on):
    time by kernel, torch.profiler): K1, K2, cuDNN's dW-only, dx-only and
    whole backward of the layer (under `default`); the plain versions warm.
    Each kernel's bound (bytes or operations over the H100's peaks) and its
-   L2-cold ratio to its cuDNN call.
+   L2-cold ratio to its cuDNN call. K2's floor, a flat pass that reads dy
+   and writes dx once in 16-byte accesses, and K2's share of it; K2's
+   times at the FactorVAE half batch (128, 32, 32, 3) too.
 5. Eval path: the full 737,280-image dsprites lattice fabricated with
    tools/fabricate_dsprites.py, a seeded-init Burgess 64x64x1 latent-10
    checkpoint written with the port's save_model, then the port's CLI
@@ -64,7 +67,8 @@ Phases (any failure raises and exits non-zero; there is no CPU carry-on):
    epoch's images/sec.
 8. A/B of the steady-state b256 train step, with the hook and without,
    turns (without, with, with, without), then one torch.profiler window
-   each: device time by kernel and the device's idle share.
+   each: device time by kernel (the twelve largest, and K1/K2 wherever
+   they rank) and the device's idle share.
 9. FactorVAE through the CLI (b128 doubled to b256, 2 epochs); K1/K2 run
    on the 128-image half batch. Once with `--no-viz-gif` and once with the
    per-epoch training gif: training.gif has one 662 x 662 RGB frame per
@@ -90,14 +94,17 @@ Phases (any failure raises and exits non-zero; there is no CPU carry-on):
 Its last two lines are JSON: the kernels' record (per kernel `ms`, the
 L2-cold time, `warm_ms`, `plain_ms`, `bound_ms`/`bound_us`, `bound_by`,
 `library_ms`, the L2-cold time of cuDNN's call for the same gradient or
-null; for K1/K2 `cudnn_dw_ms`/`cudnn_dx_ms`; for K3 `shapes`, the
+null; for K1/K2 `cudnn_dw_ms`/`cudnn_dx_ms`; for K2 `flat_us`, its floor,
+and `b128_ms`/`b128_warm_ms`; for K3 `shapes`, the
 per-shape times, `eval_sum_ms`/`eval_sum_warm_ms` and `entropy_seconds`),
 then
 {"ok": true, "device": {...}}. Scratch data lives under build/ and is
 removed at the end.
 """
 
+import ctypes
 import functools
+import importlib.util
 import json
 import math
 import os
@@ -109,6 +116,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import zlib
 
 import numpy as np
@@ -568,6 +576,18 @@ def phase_sass(path, per_lds):
         log("  sass:", t)
 
 
+def _probe():
+    """disvae_tpu_torch/probe_convt.py of this checkout, whatever
+    `--package-root` says: its floor kernel measures the card, not a
+    package."""
+    spec = importlib.util.spec_from_file_location(
+        "probe_convt", os.path.join(REPO, "disvae_tpu_torch",
+                                    "probe_convt.py"))
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    return probe
+
+
 def _rel(ref, got):
     return ((got.float() - ref.float()).abs().max()
             / ref.float().abs().max().clamp_min(1e-30)).item()
@@ -606,14 +626,21 @@ def _device_ms(fn, calls=10):
     return sum(ms for _, ms, _ in top) / calls, top
 
 
-def _convt_times(C, x32, w, dy32):
+def _convt_times(C, x32, w, dy32, probe, flat):
     """K1, K2, their plain versions and cuDNN's single-gradient calls at
     b256 celeba with bf16 operands: L2-cold medians (CUDA events) and warm
     device times (profiler). cuDNN runs under the `default` policy that the
-    hook replaces it in."""
+    hook replaces it in. K2's floor: `probe.flat_pass` on `flat`, the
+    floor kernel's library, reads dy and writes dx once in 16-byte
+    accesses."""
     from disvae_tpu_torch.ops.precision import configure
     x, dy, wb = x32.bfloat16(), dy32.bfloat16(), w.bfloat16()
     cout = w.shape[1]
+    sink = torch.zeros(4, dtype=torch.int32, device=dy.device)
+    dx = torch.empty_like(x)
+    sm_count = torch.cuda.get_device_properties(
+        dy.device).multi_processor_count
+    stream = torch.cuda.current_stream().cuda_stream
 
     def cudnn(mask):
         return lambda: torch.ops.aten.convolution_backward(
@@ -624,7 +651,9 @@ def _convt_times(C, x32, w, dy32):
            "K2": lambda: C.convt3_dx(dy, w),
            "cuDNN dW": cudnn([False, True, False]),
            "cuDNN dx": cudnn([True, False, False]),
-           "cuDNN dx+dw+db": cudnn([True, True, True])}
+           "cuDNN dx+dw+db": cudnn([True, True, True]),
+           "flat dy -> dx": lambda: probe.flat_pass(flat, (dy,), dx,
+                                                    sm_count, stream, sink)}
     flush = _flush()
     configure("default")
     try:
@@ -668,12 +697,40 @@ def _convt_times(C, x32, w, dy32):
                 k, name, cold[k], cold[k] / cold[lib[k]], lib[k],
                 cold[lib[k]], r["bound_ms"] / cold[k], r["bound_us"],
                 r["bound_by"]))
+    # K2's floor on this card: dy read and dx written once, 16 bytes an
+    # access (its bound charges the dx writes at HBM rate, though they may
+    # still sit in L2 when the end event fires)
+    flat_ms = cold["flat dy -> dx"]
+    record["convt3_dx"]["flat_us"] = flat_ms * 1e3
+    log("K2's floor, a flat read of dy and write of dx ({:.2f} MB): L2-cold "
+        "{:.2f} us, warm {:.2f} us; K2 at {:.1%} of it and {:.1%} of its "
+        "bound".format(2 * (dy.numel() + dx.numel()) / 1e6, flat_ms * 1e3,
+                       warm["flat dy -> dx"] * 1e3, flat_ms / cold["K2"],
+                       record["convt3_dx"]["bound_ms"] / cold["K2"]))
     return record
 
 
-def phase_convt_kernels(C):
+def _k2_times(C, w, dy32):
+    """K2's L2-cold and warm times (ms) with bf16 operands at another
+    shape, under the `default` policy as on the path."""
+    from disvae_tpu_torch.ops.precision import configure
+    dy = dy32.bfloat16()
+    flush = _flush()
+    configure("default")
+    try:
+        cold = time_ms(lambda: C.convt3_dx(dy, w), 20, flush)
+        warm = _device_ms(lambda: C.convt3_dx(dy, w))[0]
+    finally:
+        configure("highest")
+    return cold, warm
+
+
+def phase_convt_kernels(C, probe, flat):
     """K1/K2 against their plain versions and cuDNN at the path's shapes.
-    Returns the kernels' records (b256 celeba times in bf16)."""
+    Returns the kernels' records (b256 celeba times in bf16, K2's also at
+    the FactorVAE half batch, b128). `probe` is _probe(), `flat` the path
+    of its floor kernel's library."""
+    flat = ctypes.CDLL(flat)
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
     worst = {"convt3_dw": 0.0, "convt3_dx": 0.0}
@@ -719,7 +776,12 @@ def phase_convt_kernels(C):
         log("K1/K2 (n, h, cin, cout) = {}: max |d|/max |ref| {}".format(
             (n, h, cin, cout), "; ".join(errs)))
         if record is None:  # b256 celeba, bf16 operands as on the path
-            record = _convt_times(C, x32, w, dy32)
+            record = _convt_times(C, x32, w, dy32, probe, flat)
+        elif (n, h, cin, cout) == (128, 32, 32, 3):
+            cold, warm = _k2_times(C, w, dy32)
+            record["convt3_dx"].update(b128_ms=cold, b128_warm_ms=warm)
+            log("K2 at b128 (the FactorVAE half batch): L2-cold {:.4f} ms, "
+                "warm {:.4f} ms".format(cold, warm))
         del x32, w, dy32
         torch.cuda.empty_cache()
     for k in worst:
@@ -1135,7 +1197,9 @@ def phase_ab(C, datasets):
             log("profile {} (10 steps, profiler on): wall {:.2f} ms, device "
                 "busy {:.2f} ms, idle share {:.1%}".format(
                     name, wall * 1e3, busy * 1e3, 1 - busy / wall))
-            for k, ms, n in top[:12]:
+            # the twelve largest, and K1/K2 wherever they rank
+            for k, ms, n in top[:12] + [t for t in top[12:]
+                                        if "convt3_" in t[0]]:
                 log("  {:9.3f} ms {:5d} calls  {}".format(ms, n, k[:110]))
     finally:
         burgess.set_final_convt_impl(burgess.conv_transpose2d)
@@ -1357,19 +1421,21 @@ def main(argv=None):
     strict = root == REPO
 
     phase_device()
+    probe = _probe()
+    floor = types.SimpleNamespace(build=probe.build_flat)
     if args.convt_only:
-        phase_build({"convt3_bwd": C})
-        phase_convt_kernels(C)
+        paths = phase_build({"convt3_bwd": C, "flat_floor": floor})
+        phase_convt_kernels(C, probe, paths["flat_floor"])
         return 0
     if args.logqz_only:
         paths = phase_build({"log_qz": K})
         phase_sass(paths["log_qz"], getattr(K, "SAMPLES_PER_THREAD", None))
         log(json.dumps(phase_kernels(K, strict, clock=True)))
         return 0
-    paths = phase_build({"log_qz": K, "convt3_bwd": C})
+    paths = phase_build({"log_qz": K, "convt3_bwd": C, "flat_floor": floor})
     phase_sass(paths["log_qz"], getattr(K, "SAMPLES_PER_THREAD", None))
     record = phase_kernels(K, strict)
-    convt = phase_convt_kernels(C)
+    convt = phase_convt_kernels(C, probe, paths["flat_floor"])
     build_dir = os.path.join(REPO, "build")
     os.makedirs(build_dir, exist_ok=True)
     scratch = tempfile.mkdtemp(prefix="chip_smoke_", dir=build_dir)

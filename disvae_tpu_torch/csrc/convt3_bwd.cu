@@ -4,7 +4,8 @@
 // disvae_tpu/ops/pallas_convt_bwd.py, launched there by `convt3_bwd_pl`:
 //   K1 `_dw_kernel` (weight gradient) -> convt3_dw_band_kernel (bf16) or
 //      convt3_dw_partial_kernel (float32), then convt3_dw_merge_kernel,
-//   K2 `_dx_kernel` (input gradient)  -> convt3_dx_kernel.
+//   K2 `_dx_kernel` (input gradient)  -> convt3_dx_band_kernel (bf16) or
+//      convt3_dx_kernel (float32).
 //
 // Layouts are PyTorch's: x (N, Cin, H, W), dy (N, Cout, 2H, 2W) and the
 // ConvTranspose2d weight w (Cin, Cout, 4, 4). The forward is
@@ -61,12 +62,43 @@
 //     atomics, so dW does not change from run to run.
 //   Shapes that are not 16-byte aligned (W % 8 != 0) take synchronous
 //   element loads into the same layout.
+// K2 in bf16 (the training path's) walks the same bands, R <= 8 rows of dx
+// of one image, with the same helpers: band_at, stage_dy (dy rows
+// 2a0 - 1 .. 2a1 by cp.async, double buffered) and rebuild_q (Q for the
+// band's R + 1 rows). It is the same product turned around, a GEMM of the
+// band's positions against 16 (Cout <= 4) or 32 taps per shift:
+//   * dx^T = sum over the shifts of W2^T[shift] (channels x taps) times Q
+//     at the shifted positions (taps x positions), on mma.sync.m16n8k16
+//     with the taps as the contraction. A is the bf16-rounded weight,
+//     scattered once per block from w into shared memory and loaded with
+//     ldmatrix into registers for the launch (4 shifts x 2 m-tiles x 4
+//     registers at Cin = 32, Cout <= 4); B is Q read with
+//     ldmatrix (non-trans), each lane giving the Q row of its own position
+//     moved by the shift, as K1's B. A warp owns a 16-position step and all
+//     its channels and shifts, so each dx element is summed by one warp in
+//     one fixed order: no atomics, the same bits every launch.
+//   * Q's taps 4 Cout .. 16 are zeroed once per launch (the rebuild never
+//     writes them; zero weights times stale Inf or NaN would give NaN).
+//   * The C fragments hold pairs of adjacent positions of one channel,
+//     dx's NCHW order: they go to a (channels, R W) tile in shared memory
+//     (pitch an odd multiple of 16 bytes, conflict-free), and a channel's
+//     band of R W positions, contiguous in dx, leaves in 16-byte stores
+//     (element stores where W % 8 != 0). dx is bf16, or float32 when the
+//     caller asks for the sums before their rounding; both take this
+//     kernel.
+//   Its bound is K1's: the bytes, dy in (6.3 MB, 1.125x with the halo)
+//   and dx out (16.8 MB); the product, 1.07 GFLOP with the taps padded
+//   to 16, needs about 1 us of the tensor cores. Measured on an H100 (700
+//   W) at the path's shape, the loads, the Q rebuild, the product and the
+//   stores of three blocks per SM take 7.0, 2.7, 4.9 and 2.7 us of device
+//   time one after another rather than overlapped (PERF.md section 5).
 // K1 in float32 (never launched by the training path) stages 64 positions
 // at a time, a 4-channel x 8-tap register tile per thread on the FP32
-// pipe. K2 gives each thread one input position and 32 channels: it reads
-// the 16 Cout taps of dy around it once, and the weight sits in shared
-// memory as float4 rows that every lane of a warp reads at the same
-// address; lanes own consecutive ix, so the NCHW dx stores are coalesced.
+// pipe. K2 in float32 (never launched by the training path either) gives
+// each thread one input position and 32 channels: it reads the 16 Cout
+// taps of dy around it once, and the weight sits in shared memory as
+// float4 rows that every lane of a warp reads at the same address; lanes
+// own consecutive ix, so the NCHW dx stores are coalesced.
 //
 // Plain C interface (loaded with ctypes): each launch returns
 // cudaGetLastError() and the wrapper raises on anything but 0.
@@ -92,26 +124,11 @@ constexpr int kBandBlocksPerSm = 2;
 constexpr int kRun = 8;            // Q positions rebuilt per item
 constexpr int kBandMaxCin = 32;    // two m-tiles of 16 channels
 constexpr int kBandMaxCout = 8;    // 4 Cout taps in four n-tiles of 8
-constexpr int kDxThreads = 128;  // threads (input positions) per K2 block
-constexpr int kDxC = 32;         // channels per K2 block
+constexpr int kDxBlocksPerSm = 3;  // bf16 K2 blocks resident per SM
+constexpr int kDxThreads = 128;  // float32 K2: threads (positions) a block
+constexpr int kDxC = 32;         // float32 K2: channels a block
 constexpr int kMaxCout = 16;
 constexpr int kSmemLimit = 227 * 1024;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 __host__ __device__ inline int round4(int c) {
   return (c + kRc - 1) / kRc * kRc;
@@ -294,6 +311,15 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// Two adjacent float32 sums into K2's dx tile, in its element type.
+__device__ __forceinline__ void store_pair(__nv_bfloat16* o, float v0,
+                                           float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(v0, v1);
+}
+__device__ __forceinline__ void store_pair(float* o, float v0, float v1) {
+  *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+}
+
 // How the 8 warps of a band block split the product: each warp owns
 // kShifts of the four shifts (du, dv) and every kGroups-th 16-position
 // step, so its float32 accumulators hold kShifts x MT x NT tiles of
@@ -317,28 +343,38 @@ struct BandGeom {
   int smem;       // bytes of shared memory per block
 };
 
-// Shared memory of a band of R rows: kBandStages x buffers [mt * 16][xp]
-// and dy buffers [Cout][2R + 2][2W + 8] (each rounded up to 16 bytes, so
-// Q stays 16-byte aligned), Q [R + 1][W + 1][tp], all bf16; the sum over
-// the k-step groups reuses it from the start. The pitches xp and tp are
-// odd multiples of 16 bytes, so the eight 16-byte rows of an ldmatrix
-// fall in distinct bank groups; the dy rows' 16 spare bytes skew the
-// rows that the lanes of a warp read across banks.
-int band_smem(int R, int W, int Cout, int mt, int nt, int* xp, int* tp) {
+// Shared memory of a band of R rows, in bytes. Both kernels hold
+// kBandStages dy buffers [Cout][2R + 2][2W + 8] (each rounded up to 16
+// bytes, so Q stays 16-byte aligned) and Q [R + 1][W + 1][tp], bf16. K1
+// (out_bytes 0) adds kBandStages x buffers [mt * 16][xp], bf16, and the
+// sum over its k-step groups reuses it all from the start; K2 adds its dx
+// tile [mt * 16][xp] of out_bytes an element and its weight blocks
+// [4][mt * 16][tp], bf16. The pitches xp and tp are odd multiples of 16
+// bytes in bf16, so the eight 16-byte rows of an ldmatrix fall in
+// distinct bank groups, and xp (16k + 8 elements) keeps K2's fragment
+// stores to its tile in distinct banks in either output type; the dy
+// rows' 16 spare bytes skew the rows that the lanes of a warp read across
+// banks.
+int band_smem(int R, int W, int Cout, int mt, int nt, int out_bytes,
+              int* xp, int* tp) {
   *xp = (R * W + 15) / 16 * 16 + 8;
   *tp = nt * 8 + 8;
   const int dbuf = (Cout * (2 * R + 2) * (2 * W + 8) + 7) / 8 * 8;
-  const int staging = 2 * kBandStages * (mt * 16 * *xp + dbuf) +
-                      2 * (R + 1) * (W + 1) * *tp;
+  const int dy_q = 2 * (kBandStages * dbuf + (R + 1) * (W + 1) * *tp);
+  if (out_bytes > 0) {  // + the A blocks [4][mt * 16][tp], bf16
+    return dy_q + mt * 16 * (*xp * out_bytes + 4 * 2 * *tp);
+  }
+  const int staging = 2 * kBandStages * mt * 16 * *xp + dy_q;
   const int acc = (mt * nt <= 4 ? 4 : 2) * mt * nt * 4;
   const int reduce = kBandThreads * acc * static_cast<int>(sizeof(float));
   return staging > reduce ? staging : reduce;
 }
 
-// The tallest band (R <= kBandRows) whose block fits kBandBlocksPerSm on
-// an SM, else the tallest that fits one; false when no band fits or the
-// channels exceed the tiles.
-bool band_geom(int Cin, int H, int W, int Cout, BandGeom* g) {
+// The tallest band (R <= kBandRows) whose block fits blocks_per_sm on an
+// SM, else the tallest that fits one; false when no band fits or the
+// channels exceed the tiles. out_bytes as band_smem's: 0 for K1.
+bool band_geom(int Cin, int H, int W, int Cout, int out_bytes,
+               int blocks_per_sm, BandGeom* g) {
   if (Cin < 1 || Cin > kBandMaxCin || Cout < 1 || Cout > kBandMaxCout ||
       H < 1 || W < 1) {
     return false;
@@ -346,10 +382,11 @@ bool band_geom(int Cin, int H, int W, int Cout, BandGeom* g) {
   g->mt = Cin <= 16 ? 1 : 2;
   g->nt = 4 * Cout <= 16 ? 2 : 4;
   const int r_max = H < kBandRows ? H : kBandRows;
-  const int budget[2] = {kSmemLimit / kBandBlocksPerSm - 1024, kSmemLimit};
+  const int budget[2] = {kSmemLimit / blocks_per_sm - 1024, kSmemLimit};
   for (int b : budget) {
     for (int r = r_max; r >= 1; --r) {
-      const int smem = band_smem(r, W, Cout, g->mt, g->nt, &g->xp, &g->tp);
+      const int smem = band_smem(r, W, Cout, g->mt, g->nt, out_bytes, &g->xp,
+                                 &g->tp);
       if (smem <= b) {
         g->rows = r;
         g->per_image = (H + r - 1) / r;
@@ -359,6 +396,90 @@ bool band_geom(int Cin, int H, int W, int Cout, BandGeom* g) {
     }
   }
   return false;
+}
+
+// A band: x (or dx) rows [a0, a1) of image n.
+struct Band {
+  int n, a0, a1;
+};
+
+__device__ __forceinline__ Band band_at(int band, int per_image, int rows,
+                                        int H) {
+  Band b;
+  b.n = band / per_image;
+  b.a0 = (band - b.n * per_image) * rows;
+  b.a1 = min(b.a0 + rows, H);
+  return b;
+}
+
+// Stage the dy rows [2a0 - 1, 2a1] of band b (those on the image) at
+// db[co][r - (2a0 - 1)][c]: dr rows of dp elements per channel, 16-byte
+// cp.async copies when vec (W % 8 == 0, dy 16-byte aligned), else
+// synchronous element loads into the same layout.
+__device__ __forceinline__ void stage_dy(const __nv_bfloat16* __restrict__ dy,
+                                         __nv_bfloat16* db, const Band& b,
+                                         int Cout, int H2, int W2, int dr,
+                                         int dp, int vec) {
+  const int r_lo = max(2 * b.a0 - 1, 0), r_hi = min(2 * b.a1, H2 - 1);
+  const int d_first = r_lo - (2 * b.a0 - 1);  // buffer row of dy row r_lo
+  const int d_rows = r_hi - r_lo + 1;
+  const __nv_bfloat16* dg =
+      dy + (static_cast<long long>(b.n) * Cout * H2 + r_lo) * W2;
+  const long long d_plane = static_cast<long long>(H2) * W2;
+  if (vec) {
+    const int dc = W2 / 8;  // 16-byte chunks per dy row
+    for (int e = threadIdx.x; e < Cout * d_rows * dc; e += kBandThreads) {
+      const int t = e / dc, c = e - t * dc;
+      const int co = t / d_rows, d = t - co * d_rows;
+      cp_async16(db + (co * dr + d_first + d) * dp + c * 8,
+                 dg + co * d_plane + d * W2 + c * 8);
+    }
+  } else {
+    for (int e = threadIdx.x; e < Cout * d_rows * W2; e += kBandThreads) {
+      const int t = e / W2, c = e - t * W2;
+      const int co = t / d_rows, d = t - co * d_rows;
+      db[(co * dr + d_first + d) * dp + c] = dg[co * d_plane + d * W2 + c];
+    }
+  }
+}
+
+// Q[a0 + il, j, tap] with tap = (pi * Cout + co) * 2 + pj holds
+// dy[co, 2(a0 + il) - pi, 2j - pj], zero off the image, for il in
+// [0, a1 - a0] and j in [0, W], from band b's staged dy rows db; Q's
+// taps 4 Cout .. tp are not written. An item is a run of kRun positions
+// of one (il, pi, co) row, the rows fastest across the lanes: it reads
+// the staged dy row's 32-bit words j0 - 1 .. j0 + 7 (columns 2k, 2k + 1)
+// and writes each position's (pj = 0, pj = 1) pair as one byte permute
+// of two of them.
+__device__ __forceinline__ void rebuild_q(const __nv_bfloat16* db,
+                                          __nv_bfloat16* qs, const Band& b,
+                                          int Cout, int H2, int W, int dr,
+                                          int dp, int tp) {
+  const int n_rows = (b.a1 - b.a0 + 1) * 2 * Cout;
+  for (int e = threadIdx.x; e < n_rows * ((W + kRun) / kRun);
+       e += kBandThreads) {
+    const int run = e / n_rows, row = e - run * n_rows;
+    const int j0 = run * kRun;
+    const int il = row / (2 * Cout), pc = row - il * 2 * Cout;
+    const int pi = pc / Cout, co = pc - pi * Cout;
+    const int r = 2 * (b.a0 + il) - pi;
+    const unsigned* words = reinterpret_cast<const unsigned*>(
+        db + (co * dr + 2 * il - pi + 1) * dp);
+    unsigned w[kRun + 1];
+#pragma unroll
+    for (int i = 0; i <= kRun; ++i) {
+      const int k = j0 - 1 + i;
+      w[i] = r >= 0 && r < H2 && k >= 0 && k < W ? words[k] : 0u;
+    }
+    unsigned* dst = reinterpret_cast<unsigned*>(
+        qs + (il * (W + 1) + j0) * tp + pc * 2);
+#pragma unroll
+    for (int i = 0; i < kRun; ++i) {
+      if (j0 + i <= W) {
+        dst[i * tp / 2] = __byte_perm(w[i + 1], w[i], 0x7610);
+      }
+    }
+  }
 }
 
 // K1 in bf16. Block b takes bands b, b + gridDim.x, ... (band = image *
@@ -389,43 +510,24 @@ convt3_dw_band_kernel(const __nv_bfloat16* __restrict__ x,   // (N, Cin, H, W)
   // image) at ds[buf][co][r - (2a0 - 1)][c]; then zero x past the band's
   // positions up to the next 16-position step.
   auto load = [&](int band, int buf) {
-    const int n = band / per_image;
-    const int a0 = (band - n * per_image) * rows;
-    const int a1 = min(a0 + rows, H);
-    const int len = (a1 - a0) * W;
-    const int r_lo = max(2 * a0 - 1, 0), r_hi = min(2 * a1, H2 - 1);
-    const int d_first = r_lo - (2 * a0 - 1);  // buffer row of dy row r_lo
-    const int d_rows = r_hi - r_lo + 1;
+    const Band bd = band_at(band, per_image, rows, H);
+    const int len = (bd.a1 - bd.a0) * W;
     bf16* xb = xs + buf * xbuf;
-    bf16* db = ds + buf * dbuf;
-    const bf16* xg = x + (static_cast<long long>(n) * Cin * H + a0) * W;
-    const bf16* dg = dy + (static_cast<long long>(n) * Cout * H2 + r_lo) * W2;
+    const bf16* xg = x + (static_cast<long long>(bd.n) * Cin * H + bd.a0) * W;
     const long long x_plane = static_cast<long long>(H) * W;
-    const long long d_plane = static_cast<long long>(H2) * W2;
     if (vec) {  // 16-byte copies: W % 8 == 0 and both bases aligned
       const int xc = len / 8;
       for (int e = threadIdx.x; e < Cin * xc; e += kBandThreads) {
         const int ci = e / xc, c = e - ci * xc;
         cp_async16(xb + ci * xp + c * 8, xg + ci * x_plane + c * 8);
       }
-      const int dc = W2 / 8;  // 16-byte chunks per dy row
-      for (int e = threadIdx.x; e < Cout * d_rows * dc; e += kBandThreads) {
-        const int t = e / dc, c = e - t * dc;
-        const int co = t / d_rows, d = t - co * d_rows;
-        cp_async16(db + (co * dr + d_first + d) * dp + c * 8,
-                   dg + co * d_plane + d * W2 + c * 8);
-      }
     } else {
       for (int e = threadIdx.x; e < Cin * len; e += kBandThreads) {
         const int ci = e / len, c = e - ci * len;
         xb[ci * xp + c] = xg[ci * x_plane + c];
       }
-      for (int e = threadIdx.x; e < Cout * d_rows * W2; e += kBandThreads) {
-        const int t = e / W2, c = e - t * W2;
-        const int co = t / d_rows, d = t - co * d_rows;
-        db[(co * dr + d_first + d) * dp + c] = dg[co * d_plane + d * W2 + c];
-      }
     }
+    stage_dy(dy, ds + buf * dbuf, bd, Cout, H2, W2, dr, dp, vec);
     const int tail = (len + 15) / 16 * 16 - len;
     for (int e = threadIdx.x; e < Cin * tail; e += kBandThreads) {
       const int ci = e / tail;
@@ -467,46 +569,13 @@ convt3_dw_band_kernel(const __nv_bfloat16* __restrict__ x,   // (N, Cin, H, W)
     cp_async_wait<kBandStages - 1>();
     __syncthreads();  // this band's x and dy are in shared memory
 
-    // Q[a0 + il, j, tap] with tap = (pi * Cout + co) * 2 + pj holds
-    // dy[co, 2(a0 + il) - pi, 2j - pj], zero off the image, for il in
-    // [0, a1 - a0] and j in [0, W]. An item is a run of kRun positions of
-    // one (il, pi, co) row, the rows fastest across the lanes: it reads the
-    // staged dy row's 32-bit words j0 - 1 .. j0 + 7 (columns 2k, 2k + 1)
-    // and writes each position's (pj = 0, pj = 1) pair as one byte permute
-    // of two of them.
-    const int a0 = (band % per_image) * rows;
-    const int a1 = min(a0 + rows, H);
-    const int n_rows = (a1 - a0 + 1) * 2 * Cout;
-    const bf16* db = ds + buf * dbuf;
-    for (int e = threadIdx.x; e < n_rows * ((W + kRun) / kRun);
-         e += kBandThreads) {
-      const int run = e / n_rows, row = e - run * n_rows;
-      const int j0 = run * kRun;
-      const int il = row / (2 * Cout), pc = row - il * 2 * Cout;
-      const int pi = pc / Cout, co = pc - pi * Cout;
-      const int r = 2 * (a0 + il) - pi;
-      const unsigned* words = reinterpret_cast<const unsigned*>(
-          db + (co * dr + 2 * il - pi + 1) * dp);
-      unsigned w[kRun + 1];
-#pragma unroll
-      for (int i = 0; i <= kRun; ++i) {
-        const int k = j0 - 1 + i;
-        w[i] = r >= 0 && r < H2 && k >= 0 && k < W ? words[k] : 0u;
-      }
-      unsigned* dst = reinterpret_cast<unsigned*>(
-          qs + (il * (W + 1) + j0) * tp + pc * 2);
-#pragma unroll
-      for (int i = 0; i < kRun; ++i) {
-        if (j0 + i <= W) {
-          dst[i * tp / 2] = __byte_perm(w[i + 1], w[i], 0x7610);
-        }
-      }
-    }
+    const Band bd = band_at(band, per_image, rows, H);
+    rebuild_q(ds + buf * dbuf, qs, bd, Cout, H2, W, dr, dp, tp);
     __syncthreads();  // Q is built
 
     // dk[shift][ci][tap] += sum over the band's positions k = (a, b) of
     // x[ci, k] * Q[a + 1 - du, b + 1 - dv, tap], 16 positions a step.
-    const int len = (a1 - a0) * W;
+    const int len = (bd.a1 - bd.a0) * W;
     const int steps = (len + 15) / 16;
     const bf16* xb = xs + buf * xbuf;
     // A (x): matrices (ch 0-7, k 0-7), (ch 8-15, k 0-7), (ch 0-7, k 8-15),
@@ -624,14 +693,191 @@ convt3_dw_merge_kernel(const float* __restrict__ part,
   }
 }
 
-// K2. One thread per input position (n, iy, ix) and kDxC channels
-// (blockIdx.y picks the channel group). O is the output type: T on the
-// training path, float32 for checking bf16 sums before their rounding.
-template <typename T, typename O>
+// K2 in bf16. Block b takes bands b, b + gridDim.x, ... as K1 does and
+// writes each band's dx rows of every channel. MT m-tiles of 16
+// channels, KT k-steps of 16 taps; O is the output type (bf16 on the
+// training path, float32 for checking the sums before their rounding).
+template <int MT, int KT, typename O>
+__global__ void __launch_bounds__(kBandThreads, KT == 1 ? kDxBlocksPerSm : 2)
+convt3_dx_band_kernel(const __nv_bfloat16* __restrict__ dy,  // (N, Cout, 2H, 2W)
+                      const float* __restrict__ w,  // (Cin, Cout, 4, 4)
+                      O* __restrict__ dx,           // (N, Cin, H, W)
+                      int N, int Cin, int H, int W, int Cout, int rows,
+                      int per_image, int xp, int tp, int vec) {
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int H2 = 2 * H, W2 = 2 * W;
+  const int dr = 2 * rows + 2;          // dy rows staged per band
+  const int dp = W2 + 8;                // elements per staged dy row
+  const int dbuf = (Cout * dr * dp + 7) / 8 * 8;  // one dy buffer, 16 B
+  bf16* ds = reinterpret_cast<bf16*>(smem);  // [stages][Cout][dr][dp]
+  bf16* qs = ds + kBandStages * dbuf;        // [rows + 1][W + 1][tp]
+  O* os = reinterpret_cast<O*>(qs + (rows + 1) * (W + 1) * tp);  // [MT*16][xp]
+  constexpr int kAp = KT * 16 + 8;  // A row pitch, the host's tp
+  bf16* as = reinterpret_cast<bf16*>(os + MT * 16 * xp);  // [4][MT*16][kAp]
+  const int n_bands = N * per_image;
+
+  // a ring of kBandStages dy buffers, kBandStages - 1 bands ahead
+#pragma unroll
+  for (int i = 0; i < kBandStages - 1; ++i) {
+    const int band = blockIdx.x + i * gridDim.x;
+    if (band < n_bands) {
+      stage_dy(dy, ds + i * dbuf, band_at(band, per_image, rows, H), Cout,
+               H2, W2, dr, dp, vec);
+    }
+    cp_async_commit();
+  }
+  // While they fly: zero Q's taps 4 Cout .. 16 KT, which the rebuild never
+  // writes and the product contracts over (against zero weights: stale
+  // Inf or NaN there would make NaN), once for the launch ...
+  const int pad = KT * 16 - 4 * Cout;
+  for (int e = threadIdx.x; e < (rows + 1) * (W + 1) * pad;
+       e += kBandThreads) {
+    const int q = e / pad;
+    qs[q * tp + 4 * Cout + (e - q * pad)] = __float2bfloat16(0.f);
+  }
+  // ... and build A = W2^T[shift] in shared memory, bf16-rounded and zero
+  // past Cin channels and 4 Cout taps, where W2^T[(du, dv)][ci][(pi * Cout
+  // + co) * 2 + pj] = w[ci, co, 3 - 2du - pi, 3 - 2dv - pj]: zeros, then w
+  // read once in order and scattered (built per lane in registers, it cost
+  // each block 64 scattered loads a thread)
+  for (int e = threadIdx.x; e < 4 * MT * 16 * kAp / 2; e += kBandThreads) {
+    reinterpret_cast<unsigned*>(as)[e] = 0u;
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < Cin * Cout * 16; e += kBandThreads) {
+    const int ci = (e >> 4) / Cout, co = (e >> 4) - ci * Cout;
+    const int ry = 3 - ((e >> 2) & 3), rx = 3 - (e & 3);  // 2du + pi, 2dv + pj
+    const int sh = (ry >> 1) * 2 + (rx >> 1);
+    as[(sh * MT * 16 + ci) * kAp + ((ry & 1) * Cout + co) * 2 + (rx & 1)] =
+        __float2bfloat16(w[e]);
+  }
+  __syncthreads();
+  // a[sh][m][ks]: the m16n8k16 A fragment of channels m*16 .. m*16 + 15
+  // and taps ks*16 .. ks*16 + 15, kept in registers for the launch.
+  // ldmatrix matrices (ch 0-7, taps 0-7), (ch 8-15, taps 0-7), (ch 0-7,
+  // taps 8-15), (ch 8-15, taps 8-15); row = channel, 16 bytes of taps
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int mat = lane >> 3, mrow = lane & 7;  // ldmatrix: matrix, row
+  unsigned a[4][MT][KT][4];
+  {
+    const unsigned a_addr =
+        smem_addr(as + (mrow + (mat & 1) * 8) * kAp + (mat >> 1) * 8);
+#pragma unroll
+    for (int sh = 0; sh < 4; ++sh) {
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+#pragma unroll
+        for (int ks = 0; ks < KT; ++ks) {
+          ldsm_x4(a_addr + 2 * ((sh * MT * 16 + m * 16) * kAp + ks * 16),
+                  a[sh][m][ks]);
+        }
+      }
+    }
+  }
+
+  // B (Q): matrices (positions 0-7, taps 0-7), (0-7, taps 8-15), (8-15,
+  // 0-7), (8-15, 8-15) of a 16-position step: the b0, b1 of its two
+  // n-tiles of 8 positions
+  const unsigned q_addr = smem_addr(qs + (mat & 1) * 8);
+  const long long plane = static_cast<long long>(H) * W;
+  int buf = 0;
+  for (int band = blockIdx.x; band < n_bands; band += gridDim.x) {
+    const int ahead = band + (kBandStages - 1) * gridDim.x;
+    if (ahead < n_bands) {
+      stage_dy(dy, ds + (buf == 0 ? kBandStages - 1 : buf - 1) * dbuf,
+               band_at(ahead, per_image, rows, H), Cout, H2, W2, dr, dp,
+               vec);
+    }
+    cp_async_commit();
+    cp_async_wait<kBandStages - 1>();
+    __syncthreads();  // this band's dy is in shared memory; the previous
+                      // band's dx tile is stored
+    const Band bd = band_at(band, per_image, rows, H);
+    rebuild_q(ds + buf * dbuf, qs, bd, Cout, H2, W, dr, dp, tp);
+    __syncthreads();  // Q is built
+
+    // dx^T[ci][k] = sum over the shifts (du, dv) and taps of
+    // W2^T[shift][ci][tap] * Q[a + 1 - du, b + 1 - dv, tap] for the band's
+    // positions k = (a, b), 16 a step, each step one warp's: every dx
+    // element is summed by one warp in one order (no atomics).
+    const int len = (bd.a1 - bd.a0) * W;
+    const int steps = (len + 15) / 16;
+    for (int s = warp; s < steps; s += kBandThreads / 32) {
+      const int k0 = s * 16;
+      // this lane's ldmatrix row: its position (positions past the band
+      // repeat its last one; their sums are not stored)
+      const int k = min(k0 + mrow + (mat >> 1) * 8, len - 1);
+      const int ka = k / W, kb = k - ka * W;
+      const int q0 = (ka + 1) * (W + 1) + kb + 1;  // Q row at shift (0, 0)
+      float acc[MT][2][4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[m][t][i] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int sh = 0; sh < 4; ++sh) {
+        const int qrow = q0 - (sh >> 1) * (W + 1) - (sh & 1);
+#pragma unroll
+        for (int ks = 0; ks < KT; ++ks) {
+          unsigned bq[4];
+          ldsm_x4(q_addr + 2 * (qrow * tp + ks * 16), bq);
+#pragma unroll
+          for (int m = 0; m < MT; ++m) {
+            mma_bf16(acc[m][0], a[sh][m][ks], bq[0], bq[1]);
+            mma_bf16(acc[m][1], a[sh][m][ks], bq[2], bq[3]);
+          }
+        }
+      }
+      // C: acc[m][t] holds channels m*16 + g (0, 1) and + 8 (2, 3) at
+      // positions k0 + t*8 + 2c, + 1: adjacent positions of one channel,
+      // dx's NCHW order
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          O* o = os + (m * 16 + g) * xp + k0 + t * 8 + 2 * c;
+          store_pair(o, acc[m][t][0], acc[m][t][1]);
+          store_pair(o + 8 * xp, acc[m][t][2], acc[m][t][3]);
+        }
+      }
+    }
+    __syncthreads();  // the band's dx tile is complete
+
+    // dx rows a0 .. a1 - 1 of channel ci are contiguous in NCHW: len
+    // elements from dx[n, ci, a0, 0]
+    O* out = dx + (static_cast<long long>(bd.n) * Cin * H + bd.a0) * W;
+    if (vec) {  // 16-byte stores: W % 8 == 0 and dx 16-byte aligned
+      constexpr int kPer = 16 / static_cast<int>(sizeof(O));
+      const int chunks = len / kPer;
+      for (int e = threadIdx.x; e < Cin * chunks; e += kBandThreads) {
+        const int ci = e / chunks, q = e - ci * chunks;
+        *reinterpret_cast<uint4*>(out + ci * plane + q * kPer) =
+            *reinterpret_cast<const uint4*>(os + ci * xp + q * kPer);
+      }
+    } else {
+      for (int e = threadIdx.x; e < Cin * len; e += kBandThreads) {
+        const int ci = e / len, q = e - ci * len;
+        out[ci * plane + q] = os[ci * xp + q];
+      }
+    }
+    buf = buf == kBandStages - 1 ? 0 : buf + 1;
+  }
+  cp_async_wait<0>();
+}
+
+// K2 in float32 (never launched by the training path). One thread per
+// input position (n, iy, ix) and kDxC channels (blockIdx.y picks the
+// channel group).
 __global__ void __launch_bounds__(kDxThreads)
-convt3_dx_kernel(const T* __restrict__ dy,     // (N, Cout, 2H, 2W)
-                 const float* __restrict__ w,  // (Cin, Cout, 4, 4)
-                 O* __restrict__ dx,           // (N, Cin, H, W)
+convt3_dx_kernel(const float* __restrict__ dy,  // (N, Cout, 2H, 2W)
+                 const float* __restrict__ w,   // (Cin, Cout, 4, 4)
+                 float* __restrict__ dx,        // (N, Cin, H, W)
                  int N, int Cin, int H, int W, int Cout) {
   extern __shared__ float4 ws4[];  // [16 Cout][kDxC / 4]
   float* ws = reinterpret_cast<float*>(ws4);
@@ -640,8 +886,7 @@ convt3_dx_kernel(const T* __restrict__ dy,     // (N, Cout, 2H, 2W)
   for (int e = threadIdx.x; e < K * kDxC; e += kDxThreads) {
     const int k = e / kDxC;
     const int ci = c_base + (e - k * kDxC);
-    ws[e] = ci < Cin ? to_f(from_f<T>(w[static_cast<long long>(ci) * K + k]))
-                     : 0.f;
+    ws[e] = ci < Cin ? w[static_cast<long long>(ci) * K + k] : 0.f;
   }
   __syncthreads();
 
@@ -660,14 +905,14 @@ convt3_dx_kernel(const T* __restrict__ dy,     // (N, Cout, 2H, 2W)
 #pragma unroll
   for (int c = 0; c < kDxC; ++c) acc[c] = 0.f;
   for (int co = 0; co < Cout; ++co) {
-    const T* plane = dy + (n * Cout + co) * H2 * W2;
+    const float* plane = dy + (n * Cout + co) * H2 * W2;
     for (int ky = 0; ky < 4; ++ky) {
       const int oy = 2 * iy - 1 + ky;
       if (oy < 0 || oy >= H2) continue;
       for (int kx = 0; kx < 4; ++kx) {
         const int ox = 2 * ix - 1 + kx;
         if (ox < 0 || ox >= W2) continue;
-        const float v = to_f(plane[oy * W2 + ox]);
+        const float v = plane[oy * W2 + ox];
         const float4* wr = ws4 + (co * 16 + ky * 4 + kx) * (kDxC / 4);
 #pragma unroll
         for (int q = 0; q < kDxC / 4; ++q) {
@@ -683,7 +928,7 @@ convt3_dx_kernel(const T* __restrict__ dy,     // (N, Cout, 2H, 2W)
 #pragma unroll
   for (int c = 0; c < kDxC; ++c) {
     const int ci = c_base + c;
-    if (ci < Cin) dx[(n * Cin + ci) * HW + r] = from_f<O>(acc[c]);
+    if (ci < Cin) dx[(n * Cin + ci) * HW + r] = acc[c];
   }
 }
 
@@ -736,12 +981,24 @@ BandKernel band_kernel(const BandGeom& g) {
   return g.nt == 2 ? convt3_dw_band_kernel<2, 2> : convt3_dw_band_kernel<2, 4>;
 }
 
-// Blocks of the bf16 K1: as many as are resident at once, never more than
-// there are bands; 0 if the shape does not fit the band geometry.
-int band_blocks(int N, int Cin, int H, int W, int Cout, int sm_count) {
-  BandGeom g;
-  if (!band_geom(Cin, H, W, Cout, &g)) return 0;
-  BandKernel kern = band_kernel(g);
+template <typename O>
+using DxBandKernel = void (*)(const __nv_bfloat16*, const float*, O*, int,
+                              int, int, int, int, int, int, int, int, int);
+
+template <typename O>
+DxBandKernel<O> dx_band_kernel(const BandGeom& g) {
+  if (g.mt == 1) {
+    return g.nt == 2 ? convt3_dx_band_kernel<1, 1, O>
+                     : convt3_dx_band_kernel<1, 2, O>;
+  }
+  return g.nt == 2 ? convt3_dx_band_kernel<2, 1, O>
+                   : convt3_dx_band_kernel<2, 2, O>;
+}
+
+// Blocks of a band kernel at geometry g: as many as are resident at once,
+// never more than there are bands; 0 if it cannot run there.
+int resident_blocks(const void* kern, const BandGeom& g, int N,
+                    int sm_count) {
   if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            g.smem) != cudaSuccess) {
     return 0;
@@ -758,11 +1015,51 @@ int band_blocks(int N, int Cin, int H, int W, int Cout, int sm_count) {
   return static_cast<int>(n_bands < target ? n_bands : target);
 }
 
+// Blocks of the bf16 K1, or of the bf16 K2 with dx of out_bytes an
+// element; 0 if the shape does not fit the band geometry.
+int band_blocks(int N, int Cin, int H, int W, int Cout, int sm_count) {
+  BandGeom g;
+  if (!band_geom(Cin, H, W, Cout, 0, kBandBlocksPerSm, &g)) return 0;
+  return resident_blocks(reinterpret_cast<const void*>(band_kernel(g)), g,
+                         N, sm_count);
+}
+
+template <typename O>
+int dx_band_blocks(int N, int Cin, int H, int W, int Cout, int sm_count) {
+  BandGeom g;
+  if (!band_geom(Cin, H, W, Cout, sizeof(O), kDxBlocksPerSm, &g)) return 0;
+  return resident_blocks(reinterpret_cast<const void*>(dx_band_kernel<O>(g)),
+                         g, N, sm_count);
+}
+
+template <typename O>
+cudaError_t launch_dx_bf16(const __nv_bfloat16* dy, const float* w, O* dx,
+                           int N, int Cin, int H, int W, int Cout,
+                           int n_blocks, cudaStream_t st) {
+  BandGeom g;
+  if (n_blocks < 1 ||
+      !band_geom(Cin, H, W, Cout, sizeof(O), kDxBlocksPerSm, &g)) {
+    return cudaErrorInvalidValue;
+  }
+  DxBandKernel<O> kern = dx_band_kernel<O>(g);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
+  if (err != cudaSuccess) return err;
+  const int vec = W % 8 == 0 && reinterpret_cast<uintptr_t>(dy) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(dx) % 16 == 0;
+  kern<<<n_blocks, kBandThreads, g.smem, st>>>(dy, w, dx, N, Cin, H, W, Cout,
+                                               g.rows, g.per_image, g.xp,
+                                               g.tp, vec);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_dw_bf16(const __nv_bfloat16* x, const __nv_bfloat16* dy,
                            float* part, float* dw, int N, int Cin, int H,
                            int W, int Cout, int n_blocks, cudaStream_t st) {
   BandGeom g;
-  if (!band_geom(Cin, H, W, Cout, &g)) return cudaErrorInvalidValue;
+  if (!band_geom(Cin, H, W, Cout, 0, kBandBlocksPerSm, &g)) {
+    return cudaErrorInvalidValue;
+  }
   BandKernel kern = band_kernel(g);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
@@ -777,19 +1074,27 @@ cudaError_t launch_dw_bf16(const __nv_bfloat16* x, const __nv_bfloat16* dy,
   return launch_merge(part, dw, n_blocks, Cin * 16 * Cout, st);
 }
 
-template <typename T, typename O>
-cudaError_t launch_dx(const void* dy, const float* w, void* dx, int N,
-                      int Cin, int H, int W, int Cout, cudaStream_t st) {
+cudaError_t launch_dx_f32(const float* dy, const float* w, float* dx, int N,
+                          int Cin, int H, int W, int Cout, cudaStream_t st) {
   const long long M = static_cast<long long>(N) * H * W;
   const dim3 grid(static_cast<unsigned>((M + kDxThreads - 1) / kDxThreads),
                   (Cin + kDxC - 1) / kDxC);
   const int smem = 16 * Cout * kDxC * static_cast<int>(sizeof(float));
-  convt3_dx_kernel<T, O><<<grid, kDxThreads, smem, st>>>(
-      static_cast<const T*>(dy), w, static_cast<O*>(dx), N, Cin, H, W, Cout);
+  convt3_dx_kernel<<<grid, kDxThreads, smem, st>>>(dy, w, dx, N, Cin, H, W,
+                                                  Cout);
   return cudaGetLastError();
 }
 
-// The float32 K1's and K2's limits (the bf16 K1 has band_geom's).
+// For the tests: every word of the block's shared memory set to all ones
+// (bf16 and float32 NaN), so that a kernel launched next on the SM finds
+// NaN wherever it reads shared memory it did not write.
+__global__ void poison_smem_kernel(int words) {
+  extern __shared__ unsigned poison[];
+  volatile unsigned* p = poison;
+  for (int i = threadIdx.x; i < words; i += blockDim.x) p[i] = 0xffffffffu;
+}
+
+// The float32 K1's and K2's limits (the bf16 kernels have band_geom's).
 bool shape_ok(int N, int Cin, int H, int W, int Cout) {
   if (N < 1 || Cin < 1 || H < 1 || W < 1 || Cout < 1 || Cout > kMaxCout) {
     return false;
@@ -841,28 +1146,53 @@ int disvae_convt3_dw(int dtype, const void* x, const void* dy, float* part,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// Blocks of the bf16 K2 (the resident band blocks) with dx in out_dtype
+// (0 float32, 1 bfloat16); 0 if the shape exceeds its band geometry.
+int disvae_convt3_dx_n_blocks(int out_dtype, int N, int Cin, int H, int W,
+                              int Cout, int sm_count) {
+  if (N < 1 || sm_count < 1) return 0;
+  if (out_dtype == 1) {
+    return dx_band_blocks<__nv_bfloat16>(N, Cin, H, W, Cout, sm_count);
+  }
+  if (out_dtype == 0) return dx_band_blocks<float>(N, Cin, H, W, Cout, sm_count);
+  return 0;
+}
+
 // dtype: 0 float32, 1 bfloat16 (dy); out_dtype the same codes for dx,
-// either dy's or float32; w: (Cin, Cout, 4, 4) float32.
+// either dy's or float32; w: (Cin, Cout, 4, 4) float32. n_blocks: the bf16
+// kernel's, from disvae_convt3_dx_n_blocks (the float32 kernel ignores it).
 int disvae_convt3_dx(int dtype, int out_dtype, const void* dy,
                      const float* w, void* dx, int N, int Cin, int H, int W,
-                     int Cout, void* stream) {
-  if (!shape_ok(N, Cin, H, W, Cout)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+                     int Cout, int n_blocks, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && out_dtype == 0) {
-    return static_cast<int>(
-        launch_dx<float, float>(dy, w, dx, N, Cin, H, W, Cout, st));
+  const __nv_bfloat16* dyb = static_cast<const __nv_bfloat16*>(dy);
+  if (dtype == 0 && out_dtype == 0 && shape_ok(N, Cin, H, W, Cout)) {
+    return static_cast<int>(launch_dx_f32(static_cast<const float*>(dy), w,
+                                          static_cast<float*>(dx), N, Cin, H,
+                                          W, Cout, st));
   }
   if (dtype == 1 && out_dtype == 1) {
-    return static_cast<int>(launch_dx<__nv_bfloat16, __nv_bfloat16>(
-        dy, w, dx, N, Cin, H, W, Cout, st));
+    return static_cast<int>(launch_dx_bf16(
+        dyb, w, static_cast<__nv_bfloat16*>(dx), N, Cin, H, W, Cout,
+        n_blocks, st));
   }
   if (dtype == 1 && out_dtype == 0) {
-    return static_cast<int>(
-        launch_dx<__nv_bfloat16, float>(dy, w, dx, N, Cin, H, W, Cout, st));
+    return static_cast<int>(launch_dx_bf16(dyb, w, static_cast<float*>(dx), N,
+                                           Cin, H, W, Cout, n_blocks, st));
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Two blocks per SM of poison_smem_kernel, each holding all the shared
+// memory a block may have (so one at a time per SM).
+int disvae_poison_smem(int sm_count, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      poison_smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemLimit);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  poison_smem_kernel<<<2 * sm_count, 1024, kSmemLimit,
+                       static_cast<cudaStream_t>(stream)>>>(kSmemLimit / 4);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* disvae_cuda_error_string(int code) {

@@ -119,7 +119,9 @@ def _declare(lib):
     lib.disvae_convt3_dw_n_blocks.restype = i
     lib.disvae_convt3_dw.argtypes = [i, p, p, p, p] + [i] * 6 + [p]
     lib.disvae_convt3_dw.restype = i
-    lib.disvae_convt3_dx.argtypes = [i, i, p, p, p] + [i] * 5 + [p]
+    lib.disvae_convt3_dx_n_blocks.argtypes = [i] * 7
+    lib.disvae_convt3_dx_n_blocks.restype = i
+    lib.disvae_convt3_dx.argtypes = [i, i, p, p, p] + [i] * 6 + [p]
     lib.disvae_convt3_dx.restype = i
 
 
@@ -168,17 +170,18 @@ def _check_kernel(x, w, dy):
 
 
 @functools.lru_cache(maxsize=None)
-def _dw_blocks(dtype, n, cin, h, wd, cout, device_index):
-    """Blocks of K1's first pass (rows of its scratch) on one card, from
-    the library (the bf16 kernel asks the occupancy calculator); 0 if the
-    shape exceeds the launch geometry. Cached: the train step asks for one
-    shape at every step."""
+def _blocks(query, dtype, n, cin, h, wd, cout, device_index):
+    """Blocks of a launch on one card from the library's `query`
+    (disvae_convt3_dw_n_blocks: K1's first pass, rows of its scratch;
+    disvae_convt3_dx_n_blocks: the bf16 K2 by its output dtype). The bf16
+    kernels ask the occupancy calculator. 0 if the shape exceeds the
+    launch geometry. Cached: the train step asks for one shape at every
+    step."""
     lib = cuda_build.library(_NAME, _declare)
     with torch.cuda.device(device_index):
         sm_count = torch.cuda.get_device_properties(
             device_index).multi_processor_count
-        return lib.disvae_convt3_dw_n_blocks(dtype, n, cin, h, wd, cout,
-                                             sm_count)
+        return getattr(lib, query)(dtype, n, cin, h, wd, cout, sm_count)
 
 
 def convt3_dw(x, dy):
@@ -190,8 +193,8 @@ def convt3_dw(x, dy):
     cout = dy.shape[1]
     dw = torch.empty((cin, cout, 4, 4), dtype=torch.float32, device=x.device)
     _check_kernel(x, dw, dy)
-    n_blocks = _dw_blocks(_DTYPES[x.dtype], n, cin, h, wd, cout,
-                          x.device.index)
+    n_blocks = _blocks("disvae_convt3_dw_n_blocks", _DTYPES[x.dtype], n, cin,
+                       h, wd, cout, x.device.index)
     if n_blocks < 1:
         raise ValueError("convt3_dw: (N, Cin, H, W, Cout) = {} exceeds the "
                          "launch geometry (bf16: Cin <= 32, Cout <= 8 and a "
@@ -214,22 +217,33 @@ def convt3_dw(x, dy):
 def convt3_dx(dy, w, out_dtype=None):
     """K2: dx (N, Cin, H, W) from CUDA dy (N, Cout, 2H, 2W) and the float32
     weight w (Cin, Cout, 4, 4). dx is in dy's dtype, or in float32 with
-    `out_dtype=torch.float32` (the sums before their rounding to bf16)."""
+    `out_dtype=torch.float32` (the sums before their rounding to bf16). In
+    bf16 the kernel works in row bands on the tensor cores, with either
+    output dtype: Cin <= 32, Cout <= 8, and a band of one row must fit
+    shared memory."""
     n, cout, h2, w2 = dy.shape
-    cin = w.shape[0]
+    cin, h, wd = w.shape[0], h2 // 2, w2 // 2
     out_dtype = dy.dtype if out_dtype is None else out_dtype
     if out_dtype not in (dy.dtype, torch.float32):
         raise TypeError("convt3_dx: out_dtype must be dy's dtype or float32")
-    dx = torch.empty((n, cin, h2 // 2, w2 // 2), dtype=out_dtype,
-                     device=dy.device)
+    dx = torch.empty((n, cin, h, wd), dtype=out_dtype, device=dy.device)
     _check_kernel(torch.empty_like(dx, dtype=dy.dtype), w, dy)
+    n_blocks = 0  # the float32 kernel's grid follows the shape
+    if dy.dtype == torch.bfloat16:
+        n_blocks = _blocks("disvae_convt3_dx_n_blocks", _DTYPES[out_dtype], n,
+                           cin, h, wd, cout, dy.device.index)
+        if n_blocks < 1:
+            raise ValueError("convt3_dx: (N, Cin, H, W, Cout) = {} exceeds "
+                             "the launch geometry (bf16: Cin <= 32, Cout <= "
+                             "8 and a one-row band in shared memory)".format(
+                                 (n, cin, h, wd, cout)))
     lib = cuda_build.library(_NAME, _declare)
     with torch.cuda.device(dy.device):
         stream = torch.cuda.current_stream(dy.device).cuda_stream
         err = lib.disvae_convt3_dx(_DTYPES[dy.dtype], _DTYPES[out_dtype],
-                                   dy.data_ptr(),
-                                   w.data_ptr(), dx.data_ptr(), n, cin,
-                                   h2 // 2, w2 // 2, cout, stream)
+                                   dy.data_ptr(), w.data_ptr(),
+                                   dx.data_ptr(), n, cin, h, wd, cout,
+                                   n_blocks, stream)
     cuda_build.check(lib, err, "convt3_dx")
     convt3_dx.launches += 1
     return dx

@@ -165,6 +165,88 @@ def test_dw_band_decomposition_matches_plain(n, h, cin, cout, rows,
     assert _rel_err(ref.numpy(), got.numpy()) <= 1e-6
 
 
+def _dx_bands(dy, w, rows, n_blocks):
+    """dx as the bf16 K2 of csrc/convt3_bwd.cu computes it, in float64:
+    bands of `rows` dx rows of one image (the last one ragged), walked by
+    `n_blocks` blocks with a stride of the grid. A block's Q starts as
+    stale shared memory (NaN) and its taps 4 Cout .. 16 KT are zeroed
+    once; a band stages the dy rows 2a0 - 1 .. 2a1 that lie on the image
+    (the halo rows its neighbours stage too; the rest stale NaN), rebuilds
+    Q for rows a0 .. a1 with zeros off the image, and multiplies, for each
+    shift (du, dv), W2^T[shift] (channels padded to 16s, taps to 16 KT,
+    the bf16-rounded weight zero there) by Q at (a + 1 - du, b + 1 - dv)
+    for its positions in 16-position steps (positions past the band repeat
+    its last one; their sums are discarded)."""
+    n, cout, h2, w2 = dy.shape
+    h, wd, cin = h2 // 2, w2 // 2, w.shape[0]
+    mt, kt = (1 if cin <= 16 else 2), (1 if 4 * cout <= 16 else 2)
+    per_image = -(-h // rows)
+    taps, co, nan = kt * 16, torch.arange(cout), float("nan")
+    pairs = [(0, 0), (0, 1), (1, 0), (1, 1)]
+    wb = w.bfloat16().double()
+    a = torch.zeros(4, mt * 16, taps, dtype=torch.float64)
+    for s in range(4):
+        du, dv = divmod(s, 2)
+        for pi, pj in pairs:
+            a[s, :cin, (pi * cout + co) * 2 + pj] = wb[
+                :, :, 3 - 2 * du - pi, 3 - 2 * dv - pj]
+    dy = dy.double()
+    dx = torch.full((n, cin, h, wd), nan, dtype=torch.float64)
+    for blk in range(n_blocks):
+        q = torch.full((rows + 1, wd + 1, taps), nan, dtype=torch.float64)
+        q[..., 4 * cout:] = 0.0
+        for band in range(blk, n * per_image, n_blocks):
+            img, a0 = band // per_image, band % per_image * rows
+            a1 = min(a0 + rows, h)
+            ds = torch.full((cout, 2 * rows + 2, 2 * wd), nan,
+                            dtype=torch.float64)
+            r_lo, r_hi = max(2 * a0 - 1, 0), min(2 * a1, 2 * h - 1)
+            ds[:, r_lo - 2 * a0 + 1:r_hi - 2 * a0 + 2] = dy[img, :,
+                                                            r_lo:r_hi + 1]
+            il = torch.arange(a1 - a0 + 1)[:, None]
+            j = torch.arange(wd + 1)[None, :]
+            for pi, pj in pairs:
+                r, c = 2 * (a0 + il) - pi, 2 * j - pj
+                on = (r >= 0) & (r < 2 * h) & (c >= 0) & (c < 2 * wd)
+                v = ds[:, (2 * il - pi + 1).clamp(0, 2 * rows + 1),
+                       c.clamp(0, 2 * wd - 1)]
+                q[:a1 - a0 + 1, :, (pi * cout + co) * 2 + pj] = torch.where(
+                    on, v, torch.zeros(())).permute(1, 2, 0)
+            length = (a1 - a0) * wd
+            k = torch.arange(-(-length // 16) * 16).clamp(max=length - 1)
+            ka, kb = k // wd, k % wd
+            tile = sum(a[s] @ q[ka + 1 - s // 2, kb + 1 - s % 2].t()
+                       for s in range(4))
+            dx[img, :, a0:a1] = tile[:cin, :length].reshape(cin, a1 - a0, wd)
+    return dx
+
+
+# BAND_CASES and: Cout = 8 (32 taps, two k-steps, no tap padding), Cin =
+# 20 (two m-tiles, 12 padded channels) with Cout = 4 (16 taps, none
+# padded), and two-row bands of W = 5 walked by more blocks than bands
+DX_BAND_CASES = BAND_CASES + [(2, 8, 32, 8, 8, 3), (1, 6, 20, 4, 4, 2),
+                              (2, 5, 16, 2, 2, 7)]
+
+
+@pytest.mark.parametrize("n, h, cin, cout, rows, n_blocks", DX_BAND_CASES)
+def test_dx_band_decomposition_matches_plain(n, h, cin, cout, rows,
+                                             n_blocks):
+    """The bf16 K2's band decomposition (staged rows with the halo, Q
+    rebuilt with zeros off the image and its padded taps zeroed over
+    stale NaN, channels and taps padded, positions past the band
+    discarded), re-enacted in torch, equals the plain K2 on the same bf16
+    operands to 1e-6 of max |ref| (float32 sums against float64): every
+    dx element written, none NaN."""
+    rng = np.random.RandomState(n * 100 + h + cout)
+    w = torch.from_numpy(rng.randn(cin, cout, 4, 4).astype(np.float32))
+    dy = torch.from_numpy(rng.randn(n, cout, 2 * h, 2 * h).astype(
+        np.float32)).bfloat16()
+    ref = P.convt3_dx_plain(dy, w, torch.bfloat16)
+    got = _dx_bands(dy, w, rows, n_blocks)
+    assert not got.isnan().any()
+    assert _rel_err(ref.numpy(), got.numpy()) <= 1e-6
+
+
 def test_wrapper_takes_plain_version_on_cpu():
     _, t = _inputs(1, 2, 4, 8, 3)
     before = (P.convt3_dw.launches, P.convt3_dx.launches)

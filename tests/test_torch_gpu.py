@@ -162,6 +162,64 @@ def test_convt3_dw_bands_reject_wide_channels(cuda, cin, cout):
     assert C.convt3_dw.launches == before
 
 
+def _poison_shared_memory(device):
+    """Every SM's shared memory set to NaN bits (csrc/convt3_bwd.cu
+    `disvae_poison_smem`), on the current stream, before a launch."""
+    import ctypes
+    from disvae_tpu_torch.ops import convt_bwd as C
+    from disvae_tpu_torch.ops import cuda_build
+    lib = cuda_build.library("convt3_bwd", C._declare)
+    lib.disvae_poison_smem.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    sm_count = torch.cuda.get_device_properties(
+        device).multi_processor_count
+    cuda_build.check(lib, lib.disvae_poison_smem(
+        sm_count, torch.cuda.current_stream().cuda_stream), "poison_smem")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n, h, cin, cout",
+                         BAND_SHAPES + [(256, 32, 32, 3)])
+def test_convt3_dx_bands_match_plain(cuda, n, h, cin, cout):
+    """The bf16 K2 (row bands of dy staged with cp.async, Q rebuilt in
+    shared memory, mma.sync tiles, dx out through a shared tile) against
+    the plain version's float32 sums of the same bf16 operands, launched
+    right after every SM's shared memory was set to NaN (Q's padded taps
+    must be zeroed): dx in bf16 within one bf16 step (2^-8) of max |ref|,
+    dx in float32 within 1e-3; three launches give the same bits; one
+    launch counted per call."""
+    from disvae_tpu_torch.ops import convt_bwd as C
+    rng = np.random.RandomState(n * 1000 + h * 10 + cout)
+    w = torch.from_numpy(rng.randn(cin, cout, 4, 4).astype(np.float32))
+    dy = torch.from_numpy(rng.randn(n, cout, 2 * h, 2 * h).astype(np.float32))
+    w, dy = w.to(cuda), dy.to(cuda).bfloat16()
+    ref = C.convt3_dx_plain(dy, w, torch.bfloat16)
+    for out_dtype, tol in ((torch.bfloat16, 2 ** -8), (torch.float32, 1e-3)):
+        _poison_shared_memory(cuda)
+        before = C.convt3_dx.launches
+        dx = C.convt3_dx(dy, w, out_dtype)
+        torch.cuda.synchronize()
+        assert C.convt3_dx.launches == before + 1
+        assert dx.shape == (n, cin, h, h) and dx.dtype == out_dtype
+        assert _rel(ref, dx) <= tol, out_dtype
+        for _ in range(3):
+            assert torch.equal(dx, C.convt3_dx(dy, w, out_dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cin, cout", [(33, 3), (32, 9)])
+def test_convt3_dx_bands_reject_wide_channels(cuda, cin, cout):
+    """The bf16 K2's tiles hold Cin <= 32 and Cout <= 8: wider raises
+    before any launch."""
+    from disvae_tpu_torch.ops import convt_bwd as C
+    w = torch.zeros((cin, cout, 4, 4), device=cuda)
+    dy = torch.zeros((2, cout, 16, 16), device=cuda, dtype=torch.bfloat16)
+    before = C.convt3_dx.launches
+    for out_dtype in (None, torch.float32):
+        with pytest.raises(ValueError, match="exceeds the launch geometry"):
+            C.convt3_dx(dy, w, out_dtype)
+    assert C.convt3_dx.launches == before
+
+
 @pytest.mark.gpu
 def test_btcvae_train_step_default_policy_with_hook(cuda):
     """A batch-16 celeba-shaped btcvae step under ``default`` (bf16
