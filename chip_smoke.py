@@ -90,6 +90,23 @@ Phases (any failure raises and exits non-zero; there is no CPU carry-on):
    arrays, grey exactly and RGB within the palette bound; the prior
    traversals re-rendered on the CPU agree with the card's within 1; the
    process never imported PIL, imageio or pandas.
+13. Data parallelism at world size 1 over NCCL (this checkout's package
+   only): the group formed by parallel.distributed.initialize() from a
+   launcher's environment (RANK=0, WORLD_SIZE=1, a free MASTER_PORT), its
+   backend (must be nccl) and NCCL's version; one DP btcvae and one DP
+   FactorVAE step at b256 celeba shapes under `highest` against the plain
+   steps from the same state and pinned noise (params, Adam moments and
+   metrics within 1e-6 of their scale, and whether bitwise equal); the
+   padded step, 255 real rows of 256, under `default` with the K1/K2 hook
+   against the plain step on the 255 (the JAX test's bounds: metrics rel
+   1e-4, params atol 2e-4 where the gradient is at least 1% of its
+   tensor's largest; one K1 and one K2 launch); the training CLI under the
+   group with phase 7's settings for 1 epoch (one K1 and one K2 launch per
+   step, finite losses, the artifact set; images/sec beside phase 7's);
+   the host-clock step, DP against plain, 40 steps in turns; the eval CLI
+   of phase 5 under the group (30 K3 launches, MIG and AAM within 1e-6 of
+   phase 5's, encode and entropy seconds beside it). Every line carries
+   the card's name and power limit; the group is destroyed at the end.
 
 Its last two lines are JSON: the kernels' record (per kernel `ms`, the
 L2-cold time, `warm_ms`, `plain_ms`, `bound_ms`/`bound_us`, `bound_by`,
@@ -157,6 +174,10 @@ PEAK_EXP = 132 * 16 * BOOST_MHZ * 1e6
 # degree-6 polynomial, 6 fmas and 3 adds, 15 float32 FLOPs
 EXP_FLOPS_ON_FMA = 15
 L2_FLUSH_BYTES = 256 << 20  # written, read between L2-cold runs: 5 L2s
+# The data-parallel phase at world size 1: the DP step against the plain
+# step under `highest` (max |d| / max |ref| over parameters, Adam moments
+# and metrics), and |dMIG|, |dAAM| of the split eval against the plain one
+DP_PARITY, DP_METRICS = 1e-6, 1e-6
 
 
 def log(*args):
@@ -277,6 +298,7 @@ def _max_diff(a, b):
 
 
 def phase_device():
+    """Prints the card's name and power limit and returns them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()
@@ -286,6 +308,7 @@ def phase_device():
     log("device: {} x{} (torch {}, CUDA {})".format(
         torch.cuda.get_device_name(0), torch.cuda.device_count(),
         torch.__version__, torch.version.cuda))
+    return smi[0]
 
 
 def phase_build(modules):
@@ -1097,7 +1120,7 @@ def phase_train(C, scratch):
         "{tc_loss}".format(**losses))
     if not all(math.isfinite(v) for v in losses.values()):
         raise AssertionError("non-finite test losses")
-    return launches
+    return launches, stats
 
 
 def _device_profile(prof):
@@ -1395,6 +1418,268 @@ def phase_viz(scratch, runs, datasets):
     log("viz path: PIL, imageio and pandas never imported")
 
 
+def _dp_cases():
+    """The data-parallel cases the GPU tests use too (tests/dp_cases.py)."""
+    tests = os.path.join(REPO, "tests")
+    if tests not in sys.path:
+        sys.path.append(tests)
+    import dp_cases
+    return dp_cases
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dp_parity(mesh, say):
+    """One DP step and one plain step from the same state on the same b256
+    celeba batch and pinned noise, under `highest`: btcvae and FactorVAE."""
+    from disvae_tpu_torch.train.steps import make_train_step
+    cases = _dp_cases()
+    dev = torch.device("cuda")
+    batch = cases.celeba_batch(256, dev)
+    for loss in ("btcvae", "factor"):
+        cfg, plain = cases.celeba_state(loss, dev)
+        _, dp = cases.celeba_state(loss, dev)
+        noise = cases.pinned_noise(cfg, 256, dev)
+        want = make_train_step(cfg)(plain, batch, noise)
+        got = make_train_step(cfg, mesh)(dp, batch, noise)
+        torch.cuda.synchronize()
+        d_metrics = max(abs(float(got[k]) - float(want[k]))
+                        / max(abs(float(want[k])), 1e-30) for k in want)
+        d_state, equal = cases.state_diff(plain, dp)
+        say("DP {} step at b256 (highest) against the plain step: metrics "
+            "max rel {:.3e}; params and Adam moments max |d| / max |ref| "
+            "{:.3e}; bitwise equal: {}", loss, d_metrics, d_state, equal)
+        if d_state > DP_PARITY or d_metrics > DP_PARITY:
+            raise AssertionError("the DP {} step left another state".format(
+                loss))
+
+
+def _dp_padded(C, mesh, say):
+    """255 real rows padded to 256 through the DP padded step under
+    `default` with the K1/K2 hook, against the plain step on the 255."""
+    from disvae_tpu_torch.models import burgess
+    from disvae_tpu_torch.ops.precision import configure
+    from disvae_tpu_torch.parallel.mesh import pad_to_multiple
+    from disvae_tpu_torch.train.steps import (make_padded_train_step,
+                                              make_train_step)
+    cases = _dp_cases()
+    dev = torch.device("cuda")
+    batch = cases.celeba_batch(255, dev)
+    cfg, plain = cases.celeba_state("btcvae", dev)
+    _, dp = cases.celeba_state("btcvae", dev)
+    padded, n_valid = pad_to_multiple(batch.cpu().numpy(), 256)
+    padded = torch.from_numpy(padded).to(dev)
+    configure("default")
+    burgess.set_final_convt_impl(C.conv_transpose2d_pl)
+    try:
+        want = make_train_step(cfg)(plain, batch)
+        C.convt3_dw.launches = C.convt3_dx.launches = 0
+        got = make_padded_train_step(cfg, mesh)(dp, padded, n_valid)
+        launches = (C.convt3_dw.launches, C.convt3_dx.launches)
+        torch.cuda.synchronize()
+    finally:
+        burgess.set_final_convt_impl(burgess.conv_transpose2d)
+        configure("highest")
+    bad = [k for k in want if abs(float(got[k]) - float(want[k]))
+           > 1e-4 + 1e-4 * abs(float(want[k]))]
+    d_metrics = max(abs(float(got[k]) - float(want[k]))
+                    / max(abs(float(want[k])), 1e-30) for k in want)
+    d_params = cases.settled_param_diff(plain, dp)
+    say("DP padded btcvae step, 255 real rows of 256 (default, K1/K2 hook) "
+        "against the plain step on the 255: metrics max rel {:.3e}; params "
+        "max |d| {:.3e} where |grad| >= 1% of its tensor's max; K1 "
+        "launches {}, K2 launches {}", d_metrics, d_params, *launches)
+    if bad or d_params > 2e-4 or launches != (1, 1):
+        raise AssertionError("the padded DP step: metrics {} off, params "
+                             "{}, launches {}".format(bad, d_params,
+                                                      launches))
+
+
+def _dp_step_times(C, mesh, say, datasets):
+    """Host-clock ms per b256 btcvae step over 40 steps, the DP step
+    against the plain one, in turns, on the resident celeba subset under
+    `default` with the K1/K2 hook."""
+    from disvae_tpu_torch.data.resident import ResidentData
+    from disvae_tpu_torch.models import burgess
+    from disvae_tpu_torch.ops.precision import configure
+    from disvae_tpu_torch.train.steps import make_train_step
+    cases = _dp_cases()
+    dev = torch.device("cuda")
+    ds = datasets.get_dataset("celeba")()
+    wire = ResidentData(ds, dev).wire
+    idx = torch.from_numpy(np.random.default_rng(SEED).permutation(
+        len(ds))[:100 * 256].reshape(100, 256)).to(dev)
+    runs, cursor = {}, {}
+    configure("default")
+    burgess.set_final_convt_impl(C.conv_transpose2d_pl)
+    try:
+        for name, m in (("plain", None), ("DP", mesh)):
+            cfg, state = cases.celeba_state("btcvae", dev, n_data=len(ds))
+            runs[name] = (make_train_step(cfg, m), state)
+            cursor[name] = 0
+
+        def run(name, n):
+            step, state = runs[name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                step(state, wire.index_select(0, idx[cursor[name] % 100]))
+                cursor[name] += 1
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / n * 1e3
+
+        for name in runs:
+            run(name, 10)  # warm-up
+        times = {k: [] for k in runs}
+        for name in ("plain", "DP", "DP", "plain"):
+            times[name].append(run(name, 40))
+    finally:
+        burgess.set_final_convt_impl(burgess.conv_transpose2d)
+        configure("highest")
+    say("b256 btcvae train step, host clock, 40 steps (default, K1/K2 hook, "
+        "resident): plain {} ms, DP at world size 1 {} ms (in turns: plain, "
+        "DP, DP, plain)", " / ".join("{:.3f}".format(t)
+                                     for t in times["plain"]),
+        " / ".join("{:.3f}".format(t) for t in times["DP"]))
+    # the DP step's collectives alone, at the step's sizes: the latent
+    # gather (256 x 30 float32), the reconstruction sum, the flat gradient
+    # all-reduce of the VAE's parameters
+    from disvae_tpu_torch.parallel.mesh import (all_reduce_sum, gather_rows,
+                                                reduce_gradients)
+    model = runs["DP"][1].model
+    stats, scalar = torch.randn(256, 30, device=dev), torch.ones((), device=dev)
+
+    def host_ms(fn, n=200):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+    say("the DP step's collectives alone, host clock per call (200 calls): "
+        "latent gather {:.3f} ms, reconstruction all-reduce {:.3f} ms, flat "
+        "gradient all-reduce ({:,} floats) {:.3f} ms",
+        host_ms(lambda: gather_rows(stats, mesh)),
+        host_ms(lambda: all_reduce_sum(scalar, mesh)),
+        sum(p.numel() for p in model.parameters()),
+        host_ms(lambda: reduce_gradients(model.parameters(), mesh)))
+
+
+def phase_data_parallel(C, K, scratch, smi, datasets, plain_train,
+                        eval_run):
+    """The data-parallel path at world size 1 over NCCL: the group formed
+    from a launcher's environment, step parity, the padded step with the
+    hook, the training CLI and the split MIG/AAM eval through the CLI
+    under the group, each beside its plain counterpart from this call.
+    Every line carries the card's name and power limit."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from disvae_tpu_torch import cli
+    from disvae_tpu_torch.models import burgess
+    from disvae_tpu_torch.ops.precision import configure
+    from disvae_tpu_torch.parallel import distributed
+    from disvae_tpu_torch.parallel.mesh import create_mesh
+    from disvae_tpu_torch.utils.modelIO import load_metadata
+
+    def say(fmt, *args):
+        log("[{}] {}".format(smi, fmt.format(*args)))
+
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+    os.environ.update(env)
+    try:
+        t0 = time.perf_counter()
+        distributed.initialize(cuda=True, timeout=timedelta(seconds=300))
+        backend = dist.get_backend()
+        nccl = torch.cuda.nccl.version()
+        say("process group: backend {}, NCCL {}, world size {}, formed in "
+            "{:.2f} s", backend, ".".join(map(str, nccl))
+            if isinstance(nccl, tuple) else nccl, dist.get_world_size(),
+            time.perf_counter() - t0)
+        if backend != "nccl":
+            raise AssertionError("the group's backend is " + backend)
+        mesh = create_mesh()
+        _dp_parity(mesh, say)
+        _dp_padded(C, mesh, say)
+
+        # the training CLI under the group: btcvae_celeba's settings
+        name = "chip_smoke_dp_btcvae_celeba"
+        burgess.set_final_convt_impl(C.conv_transpose2d_pl)
+        try:
+            C.convt3_dw.launches = C.convt3_dx.launches = 0
+            trainer, _, seconds = _cli_run(cli, scratch, [
+                name, "-d", "celeba", "-l", "btcvae", "--btcvae-B", "6.4",
+                "--lr", "5e-4", "-b", "256", "-e", "1", "--checkpoint-every",
+                "1", "--precision", "default", "--no-viz-gif",
+                "--no-progress-bar", "-s", str(SEED)])
+            launches = (C.convt3_dw.launches, C.convt3_dx.launches)
+        finally:
+            burgess.set_final_convt_impl(burgess.conv_transpose2d)
+            configure("highest")
+        exp_dir = os.path.join(scratch, cli.RES_DIR, name)
+        steps = trainer.state.step
+        rate = trainer.epoch_stats[0]["images_per_sec"]
+        say("DP train CLI (btcvae, celeba {:,} images, b256, default, K1/K2 "
+            "hook, world size 1): {:.1f} s, {} steps, K1 launches {}, K2 "
+            "launches {}; {:.0f} images/sec, against the plain CLI's epochs "
+            "{} images/sec", N_CELEBA, seconds, steps, *launches, rate,
+            " / ".join("{:.0f}".format(e["images_per_sec"])
+                       for e in plain_train))
+        if trainer.mesh is None or steps != -(-N_CELEBA // 256) \
+                or launches != (steps, steps):
+            raise AssertionError("DP training: mesh {}, {} steps, launches "
+                                 "{}".format(trainer.mesh, steps, launches))
+        rows = _read_log(exp_dir)
+        losses = load_metadata(exp_dir, filename="test_losses.log")
+        if not all(math.isfinite(float(r[2])) for r in rows) \
+                or not all(math.isfinite(v) for v in losses.values()) \
+                or not math.isfinite(trainer.epoch_stats[0]["loss"]):
+            raise AssertionError("DP training: non-finite losses")
+        made = sorted(os.listdir(exp_dir))
+        if made != ["model-0.pt", "model.pt", "specs.json",
+                    "test_losses.log", "train_losses.log", "train_state.pt"]:
+            raise AssertionError("DP training wrote {}".format(made))
+        say("DP train CLI: epoch loss {:.4f}, test loss {}; wrote {}",
+            trainer.epoch_stats[0]["loss"], losses["loss"], ", ".join(made))
+        _dp_step_times(C, mesh, say, datasets)
+
+        # the MIG/AAM eval through the CLI under the group
+        eval_dir, metrics, timings = eval_run
+        K.log_qz.launches = 0
+        _, ev, seconds = _cli_run(cli, scratch, [
+            os.path.basename(eval_dir), "--is-eval-only", "--is-metrics",
+            "-l", "btcvae", "--no-progress-bar", "-s", str(SEED)])
+        launches = K.log_qz.launches
+        got = load_metadata(eval_dir, filename="metrics.log")
+        d_mig = abs(got["MIG"] - metrics["MIG"])
+        d_aam = abs(got["AAM"] - metrics["AAM"])
+        t = ev.last_metrics_timings
+        say("DP eval CLI (dsprites 737,280 images, world size 1): {:.1f} s; "
+            "log_qz launches {}; MIG {} AAM {}, |dMIG| {:.3e} |dAAM| {:.3e} "
+            "against the plain eval; encode {:.3f} s (plain {:.3f} s), "
+            "entropies {:.3f} s (plain {:.3f} s)", seconds, launches,
+            got["MIG"], got["AAM"], d_mig, d_aam, t["encode_seconds"],
+            timings["encode_seconds"], t["entropy_seconds"],
+            timings["entropy_seconds"])
+        if ev.mesh is None or launches != 30 or d_mig > DP_METRICS \
+                or d_aam > DP_METRICS:
+            raise AssertionError("DP eval: mesh {}, {} launches, |dMIG| {}, "
+                                 "|dAAM| {}".format(ev.mesh, launches, d_mig,
+                                                    d_aam))
+    finally:
+        distributed.shutdown()
+        for k in env:
+            os.environ.pop(k, None)
+
+
 def main(argv=None):
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1420,7 +1705,7 @@ def main(argv=None):
         os.path.dirname(os.path.abspath(C.__file__))))))
     strict = root == REPO
 
-    phase_device()
+    smi = phase_device()
     probe = _probe()
     floor = types.SimpleNamespace(build=probe.build_flat)
     if args.convt_only:
@@ -1448,12 +1733,18 @@ def main(argv=None):
                 record["eval_sum_warm_ms"] / 1e3))
         phase_eval_variants(K, scratch, exp_dir, datasets, metrics, timings)
         phase_serving(exp_dir, datasets)
-        dw_launches, dx_launches = phase_train(C, scratch)
+        (dw_launches, dx_launches), train_stats = phase_train(C, scratch)
         phase_ab(C, datasets)
         phase_factor(C, scratch)
         phase_viz(scratch, [("chip_smoke_btcvae_celeba", "celeba"),
                             (os.path.basename(exp_dir), "dsprites")],
                   datasets)
+        if strict:
+            phase_data_parallel(C, K, scratch, smi, datasets, train_stats,
+                                (exp_dir, metrics, timings))
+        else:
+            log("data-parallel phase skipped: it runs this checkout's "
+                "package only")
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 

@@ -14,8 +14,10 @@ kernel `ops.log_qz`; training (`python -m disvae_tpu_torch <name> -d
 <dataset> -l <loss> ...`) with its per-epoch traversal gif, whose final
 decoder transposed conv can take the hand-written backward kernels of
 `ops.convt_bwd`; and the plots (`python -m disvae_tpu_torch.cli_viz
-<name> all`). The CUDA sources in `csrc/` are built with nvcc at first use
-into `build/disvae_tpu_torch/`.
+<name> all`). Data parallelism over torch.distributed (`parallel/`,
+`torchrun --nproc_per_node N -m disvae_tpu_torch ...`) computes every
+loss at the global batch. The CUDA sources in `csrc/` are built with nvcc
+at first use into `build/disvae_tpu_torch/`.
 """
 
 __version__ = "0.1.0"

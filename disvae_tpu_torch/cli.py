@@ -18,8 +18,15 @@ says) and both branches:
   when both cover the same images; otherwise it streams, unless
   `--resident-data always` uploads the dataset for it.
 
-`--model-parallel` > 1 waits for the data-parallel slice and raises
-NotImplementedError naming ROADMAP.md.
+Data parallelism: `torchrun --nproc_per_node N -m disvae_tpu_torch
+<name> ...` runs one rank per GPU (`cuda:LOCAL_RANK`, NCCL; gloo with
+`--no-cuda`). Whenever a process group is up and `--no-mesh` is not
+given, world size 1 included, the run is data-parallel: `-b` is the
+global batch and each rank feeds its B/W rows (a host-sliced loader), the
+steps compute the loss at the global batch (parallel/mesh.py), the eval
+splits its encode and entropy sweeps over the ranks, and rank 0 alone
+writes `results/<name>/`. `--model-parallel` > 1 (tensor parallelism) is
+not ported and raises NotImplementedError naming ROADMAP.md.
 
 The device is CUDA unless `--no-cuda` asks for the CPU; without a GPU
 and without `--no-cuda` the CLI raises rather than run on the CPU. The
@@ -35,12 +42,16 @@ import sys
 import time
 
 import torch
+import torch.distributed as dist
 
 from disvae_tpu_torch.data.datasets import (DATASETS, get_dataloaders,
                                             get_img_size)
 from disvae_tpu_torch.models.vae import MODELS, init_specific_model
 from disvae_tpu_torch.ops.losses import LOSSES, RECON_DIST, get_loss_f
 from disvae_tpu_torch.ops.precision import PRECISIONS, configure
+from disvae_tpu_torch.parallel import distributed
+from disvae_tpu_torch.parallel.distributed import barrier, is_writer
+from disvae_tpu_torch.parallel.mesh import create_mesh
 from disvae_tpu_torch.train.evaluate import Evaluator
 from disvae_tpu_torch.train.trainer import Trainer
 from disvae_tpu_torch.utils.helpers import (FormatterNoDuplicate,
@@ -107,7 +118,9 @@ def parse_arguments(args_to_parse):
                          help='Devices per tensor-parallel group (not '
                               'ported yet; only 1 is accepted).')
     general.add_argument('--no-mesh', action='store_true', default=False,
-                         help='Run single-device (the port always does).')
+                         help='Train single-device even under a process '
+                              'group of one rank (data parallelism over '
+                              'every rank is otherwise the default).')
     general.add_argument('--resident-data', default='auto',
                          choices=['auto', 'always', 'never'],
                          help='Device-resident feed: "auto" trains from '
@@ -256,7 +269,31 @@ def main(args):
 
     if args.model_parallel != 1:
         raise NotImplementedError("--model-parallel is not ported yet "
-                                  "(ROADMAP.md, Queue 2).")
+                                  "(ROADMAP.md, Queue 1 item 1).")
+
+    # The process group first: it picks this rank's GPU. Data parallelism
+    # is the default whenever a group is up, world size 1 included, so
+    # `torchrun --nproc_per_node 1` runs every collective of the path.
+    distributed.initialize(cuda=not args.no_cuda)
+    mesh = None
+    if dist.is_initialized():
+        if args.no_mesh:
+            if dist.get_world_size() > 1:
+                # without the mesh there are no collectives: each rank
+                # would silently train its own model on its own rows
+                raise ValueError("--no-mesh is not valid on a multi-rank "
+                                 "run: host-sliced feeding only makes "
+                                 "sense as the feed of a data-parallel "
+                                 "mesh.")
+        else:
+            mesh = create_mesh(model_parallel=args.model_parallel)
+            logger.info("Data-parallel mesh: rank {} of {} (backend {})"
+                        .format(mesh.rank, mesh.size, dist.get_backend()))
+            if args.seed is None:
+                # every rank must draw the same init, noise and shuffles
+                seed = [int(time.time()) & 0x7FFFFFFF]
+                dist.broadcast_object_list(seed, src=0)
+                args.seed = seed[0]
 
     configure(args.precision)
     device = get_device(args.no_cuda)
@@ -273,10 +310,14 @@ def main(args):
 
     trainer = evaluator = None
     if not args.is_eval_only:
-        if args.resume:
-            os.makedirs(exp_dir, exist_ok=True)
-        else:
-            create_safe_directory(exp_dir, logger=logger)
+        # rank 0 owns the results dir (archive then create happens once);
+        # the other ranks wait until it exists
+        if is_writer():
+            if args.resume:
+                os.makedirs(exp_dir, exist_ok=True)
+            else:
+                create_safe_directory(exp_dir, logger=logger)
+        barrier("disvae:results-dir")
 
         if args.loss == "factor":
             logger.info("FactorVAE consumes two half-batches per iteration; "
@@ -285,9 +326,16 @@ def main(args):
             args.batch_size *= 2
             args.epochs *= 2
 
+        # each rank feeds only its share of every global batch; the
+        # (seed, epoch)-keyed permutation is the same on every rank
+        host_slice = pad_global_to = None
+        if mesh is not None:
+            host_slice, pad_global_to = (mesh.rank, mesh.size), mesh.size
         train_loader = get_dataloaders(args.dataset,
                                        batch_size=args.batch_size,
-                                       logger=logger, seed=args.seed)
+                                       logger=logger, seed=args.seed,
+                                       host_slice=host_slice,
+                                       pad_global_to=pad_global_to)
         logger.info("Train {} with {} samples".format(
             args.dataset, len(train_loader.dataset)))
 
@@ -297,8 +345,12 @@ def main(args):
             generator=torch.Generator().manual_seed(init_seed),
             device=device)
         logger.info('Num parameters in model: {}'.format(get_n_param(model)))
+        # The writer rank renders the training gif. Every rank holds a full
+        # replica of the model on its own GPU, so the frame is a local
+        # computation: JAX's _LocalDeviceGif, which re-homes mesh-committed
+        # params onto one device, has no counterpart here.
         gif_visualizer = None
-        if not args.no_viz_gif:
+        if is_writer() and not args.no_viz_gif:
             gif_visualizer = GifTraversalsTraining(model, args.dataset,
                                                    exp_dir)
         loss_f = get_loss_f(args.loss,
@@ -313,8 +365,9 @@ def main(args):
                           gif_visualizer=gif_visualizer,
                           resident=args.resident_data,
                           resume=args.resume,
-                          skip_tiny_tail=True)
-        if args.profile:
+                          skip_tiny_tail=True,
+                          mesh=mesh)
+        if args.profile and is_writer():
             profile_dir = os.path.join(exp_dir, "profile")
             os.makedirs(profile_dir, exist_ok=True)
             activities = [torch.profiler.ProfilerActivity.CPU]
@@ -333,7 +386,9 @@ def main(args):
                     checkpoint_every=args.checkpoint_every)
 
         # the final model plus the full resolved config
-        save_model(trainer.model, exp_dir, metadata=vars(args))
+        if is_writer():
+            save_model(trainer.model, exp_dir, metadata=vars(args))
+        barrier("disvae:model-saved")
 
     if args.is_metrics or not args.no_test:
         model = load_model(exp_dir, device=device)
@@ -364,15 +419,22 @@ def main(args):
                               scramble_quirk=not args.corrected_mig,
                               metrics_seed=metrics_seed,
                               fast_entropies=args.fast_metrics,
-                              resident=eval_resident)
+                              resident=eval_resident,
+                              mesh=mesh)
         evaluator(test_loader, is_metrics=args.is_metrics,
                   is_losses=not args.no_test)
+
+    # no rank exits while another still has collective work in flight
+    barrier("disvae:end")
     return trainer, evaluator
 
 
 def cli():
-    """Body of `python -m disvae_tpu_torch`."""
-    main(parse_arguments(sys.argv[1:]))
+    """Body of `python -m disvae_tpu_torch` (and of each torchrun rank)."""
+    try:
+        main(parse_arguments(sys.argv[1:]))
+    finally:
+        distributed.shutdown()
 
 
 if __name__ == '__main__':

@@ -80,18 +80,45 @@ class DataLoader:
     Yields `(images, labels)` with images float32 NHWC in [0, 1] (or the
     uint8 wire format with `raw=True`). Shuffling draws a fresh permutation
     per epoch from a (seed, epoch)-keyed PRNG; `drop_last=False` keeps the
-    final partial batch. The JAX loader's multi-host options (`host_slice`,
-    `pad_global_to`) arrive with the data-parallel slice.
+    final partial batch.
+
+    Data-parallel feeding (disvae_tpu/data/datasets.py:95-160):
+    `host_slice=(rank, world_size)` makes the loader yield only this rank's
+    rows of every global batch, contiguous shares whose union is the
+    global permutation; the permutation is (seed, epoch)-keyed, hence the
+    same on every rank. With `pad_global_to=M` (the data-axis size) each
+    global batch's index list is first padded to the next multiple of M
+    by repeating its last index, then split into equal shares, so every
+    rank yields equally shaped batches and the pad rows sit at the global
+    end, where the mask-aware padded step expects them; the true global
+    sizes come from `global_batch_sizes()`. Without pad_global_to the
+    shares are np.array_split's (possibly uneven or empty).
     """
 
     def __init__(self, dataset, batch_size=128, shuffle=False, seed=None,
-                 drop_last=False, raw=False):
+                 drop_last=False, raw=False, host_slice=None,
+                 pad_global_to=None):
         self.dataset = dataset
         self.batch_size = int(batch_size)
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
         self.raw = raw  # yield wire-format uint8 (see get_batch_raw)
+        self.host_slice = host_slice
+        self.pad_global_to = pad_global_to
+        if host_slice is not None and pad_global_to is not None:
+            if pad_global_to % host_slice[1]:
+                raise ValueError(
+                    "pad_global_to={} must be divisible by process_count={}"
+                    .format(pad_global_to, host_slice[1]))
+        if host_slice is not None and host_slice[1] > 1 and shuffle \
+                and seed is None:
+            # each rank draws the permutation itself: without a shared
+            # seed the shares come from different permutations
+            raise ValueError(
+                "host_slice feeding with shuffle=True requires a seed: the "
+                "(seed, epoch)-keyed permutation must be identical on every "
+                "host.")
         self._epoch = 0
 
     def __len__(self):
@@ -99,6 +126,16 @@ class DataLoader:
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
+
+    def global_batch_sizes(self):
+        """True global size of each batch of an epoch, whatever the
+        host_slice and padding: the padded step needs the global (not the
+        rank's) count of valid rows."""
+        n = len(self.dataset)
+        sizes = [self.batch_size] * (n // self.batch_size)
+        if not self.drop_last and n % self.batch_size:
+            sizes.append(n % self.batch_size)
+        return sizes
 
     def epoch_order(self):
         """This epoch's index order; advances the epoch counter."""
@@ -120,6 +157,21 @@ class DataLoader:
             idcs = order[i:i + self.batch_size]
             if self.drop_last and len(idcs) < self.batch_size:
                 break
+            if self.host_slice is not None:
+                pi, pn = self.host_slice
+                if self.pad_global_to is not None:
+                    m = self.pad_global_to
+                    padded_n = -(-len(idcs) // m) * m
+                    if padded_n > len(idcs):
+                        idcs = np.concatenate(
+                            [idcs, np.repeat(idcs[-1:],
+                                             padded_n - len(idcs))])
+                    share = padded_n // pn
+                    idcs = idcs[pi * share:(pi + 1) * share]
+                else:
+                    idcs = np.array_split(idcs, pn)[pi]
+                    if len(idcs) == 0:
+                        continue
             if self.raw:
                 yield self.dataset.get_batch_raw(idcs)
             else:

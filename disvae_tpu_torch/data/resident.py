@@ -10,6 +10,11 @@ The wire format is the streaming feed's (bitpacked rows for binary
 datasets, scaled uint8 otherwise), so the train step's on-device
 decompression (train/steps.py `_decompress_batch`) is shared and the fed
 pixel values are bit-identical to the streaming feed.
+
+Under a data-parallel mesh every rank holds the whole upload, as the JAX
+mesh replicates it (disvae_tpu/data/resident.py:53-54, 84-110), and
+gathers only its rows of each global batch from the epoch order that all
+ranks share (train/trainer.py `_dispatch_epoch_resident`).
 """
 
 import logging

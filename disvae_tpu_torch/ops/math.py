@@ -1,8 +1,8 @@
 """Gaussian log-density helpers and the MSS importance-weight matrix.
 
-PyTorch counterparts of disvae_tpu/ops/math.py:16-47 (reference
-disvae/utils/math.py:8-73). The padded-batch `_masked` variant waits for the
-data-parallel slice.
+PyTorch counterparts of disvae_tpu/ops/math.py:16-78 (reference
+disvae/utils/math.py:8-73), including the `_masked` weights of a padded
+batch.
 """
 
 import math
@@ -42,3 +42,35 @@ def log_importance_weight_matrix(batch_size, dataset_size,
     W[:, 1] = strat_weight
     W[M - 1, 0] = strat_weight
     return torch.log(W)
+
+
+def log_importance_weight_matrix_masked(padded_size, n_valid, dataset_size,
+                                        dtype=torch.float32, device=None):
+    """MSS log-weights for a batch PADDED to `padded_size` whose first
+    `n_valid` rows are real (disvae_tpu/ops/math.py:50-78, computed in
+    `dtype` as there).
+
+    Entries inside the valid block equal log_importance_weight_matrix
+    built for batch_size == n_valid, including the reference's column fill
+    quirk, while padded columns are -inf so the phantom mixture components
+    vanish under the downstream logsumexp. Padded ROWS still produce
+    values; callers exclude them from batch means.
+
+    n_valid == 1 is UNDEFINED (M = 0 makes 1/M and strat_weight inf, and
+    the (i == n_valid-2) corner never fires) and diverges from the
+    unpadded path, which raises on a batch of one like the reference. The
+    Trainer never feeds such a tail (Trainer._skip_tiny_tail); library
+    callers must do the same.
+    """
+    N = torch.tensor(float(dataset_size), dtype=dtype, device=device)
+    M = torch.tensor(float(n_valid), dtype=dtype, device=device) - 1.0
+    strat_weight = (N - M) / (N * M)
+    i = torch.arange(padded_size, device=device)[:, None]
+    j = torch.arange(padded_size, device=device)[None, :]
+    W = torch.full((padded_size, padded_size), 1.0, dtype=dtype,
+                   device=device) / M
+    W = torch.where(j == 0, 1.0 / N, W)
+    W = torch.where(j == 1, strat_weight, W)
+    W = torch.where((i == n_valid - 2) & (j == 0), strat_weight, W)
+    return torch.where(j < n_valid, torch.log(W),
+                       torch.tensor(-math.inf, dtype=dtype, device=device))

@@ -27,8 +27,16 @@ results are bit-identical to streaming. Unlike the JAX evaluator, "auto"
 builds no upload of its own: on the H100 a single eval's upload costs
 more than the streamed feed it replaces (PERF.md), so only a handed-in
 upload is worth reading. `fast_entropies` takes the bf16 estimator
-`ops.log_qz.log_qz_fast` instead of `log_qz` (`--fast-metrics`). The
-device mesh waits for the data-parallel slice (ROADMAP.md).
+`ops.log_qz.log_qz_fast` instead of `log_qz` (`--fast-metrics`).
+
+Under a data-parallel mesh (`mesh`, disvae_tpu evaluate.py:130-186) the
+metrics encode is split: each rank encodes its contiguous N/W rows and
+the (N, D) mu and logvar are all-gathered. Each entropy sweep's samples
+are split too: every rank draws the same sample indices in the JAX
+evaluator's order, evaluates its S/W of them against all M mixture
+components, and one all-reduce per sweep sums the float64 (L, D)
+partials. The first-batch test-loss pass is not split (every rank
+computes the same numbers), and rank 0 alone writes the files.
 """
 
 import logging
@@ -38,11 +46,14 @@ from timeit import default_timer
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from disvae_tpu_torch.data.resident import ResidentData, wire_shape
 from disvae_tpu_torch.models.discriminator import Discriminator
 from disvae_tpu_torch.ops.log_qz import log_qz, log_qz_fast
 from disvae_tpu_torch.ops.losses import coef_vector
+from disvae_tpu_torch.parallel.distributed import is_writer
+from disvae_tpu_torch.parallel.mesh import gather_rows
 from disvae_tpu_torch.train.steps import _decompress_batch, make_eval_step
 from disvae_tpu_torch.utils.modelIO import save_metadata
 
@@ -60,7 +71,8 @@ class Evaluator:
     `resident` is a prebuilt `ResidentData` of the same images (the
     Trainer's upload), "always" (upload the dataset for the metrics
     encode), or "auto", "never" or None (stream the batches).
-    `fast_entropies` selects the bf16 entropy estimator.
+    `fast_entropies` selects the bf16 entropy estimator. `mesh` splits
+    the metrics encode and the entropy sweeps over its ranks.
     """
 
     def __init__(self, model, loss_f,
@@ -69,8 +81,10 @@ class Evaluator:
                  scramble_quirk=True,
                  metrics_seed=None,
                  fast_entropies=False,
-                 resident="auto"):
+                 resident="auto",
+                 mesh=None):
         self.model = model.eval()
+        self.mesh = mesh
         self.device = next(model.parameters()).device
         self.loss_f = loss_f
         self.logger = logger
@@ -151,12 +165,16 @@ class Evaluator:
             self.logger.info("Computing metrics...")
             metrics = self.compute_metrics(data_loader)
             self.logger.info("Metrics: {}".format(metrics))
-            save_metadata(metrics, self.save_dir, filename=METRICS_FILENAME)
+            if is_writer():
+                save_metadata(metrics, self.save_dir,
+                              filename=METRICS_FILENAME)
         if is_losses:
             self.logger.info("Computing losses...")
             losses = self.compute_losses(data_loader)
             self.logger.info("Losses: {}".format(losses))
-            save_metadata(losses, self.save_dir, filename=TEST_LOSSES_FILE)
+            if is_writer():
+                save_metadata(losses, self.save_dir,
+                              filename=TEST_LOSSES_FILE)
         self.logger.info("Finished evaluating after {:.1f} min.".format(
             (default_timer() - start) / 60))
         return metrics, losses
@@ -228,7 +246,8 @@ class Evaluator:
         aam = self._axis_aligned_metric(sorted_mut_info,
                                         storer=metric_helpers)
         metrics = {"MIG": float(mig), "AAM": float(aam)}
-        self._save_metric_helpers(metric_helpers)
+        if is_writer():
+            self._save_metric_helpers(metric_helpers)
         self.last_metrics_internals = metric_helpers
         return metrics
 
@@ -267,21 +286,48 @@ class Evaluator:
     @torch.no_grad()
     def _compute_q_zCx(self, dataloader):
         """Encode the entire dataset on the device. Returns (samples (N, D),
-        (mu, logvar)); in eval mode samples == mu."""
+        (mu, logvar)); in eval mode samples == mu. Under a mesh each rank
+        encodes its contiguous share of the rows, in batches of the
+        loader's size, and the shares are gathered."""
+        ds, B = dataloader.dataset, dataloader.batch_size
+        n = len(ds)
+        if getattr(dataloader, "drop_last", False):
+            n -= n % B
+        lo, hi, share = 0, n, n
+        if self.mesh is not None:
+            if getattr(dataloader, "shuffle", False):
+                raise ValueError("the split metrics encode reads the rows "
+                                 "in dataset order: pass an unshuffled "
+                                 "loader")
+            share = -(-n // self.mesh.size)
+            lo = min(n, self.mesh.rank * share)
+            hi = min(n, lo + share)
         if self._use_resident(dataloader):
             wire = self._resident.wire
-            n, B = len(dataloader.dataset), dataloader.batch_size
-            if getattr(dataloader, "drop_last", False):
-                n -= n % B
-            batches = (wire[i:i + B] for i in range(0, n, B))
-        else:
+            batches = (wire[i:min(i + B, hi)] for i in range(lo, hi, B))
+        elif self.mesh is None:
             batches = (self._to_device(x) for x, _ in dataloader)
+        else:
+            get = ds.get_batch_raw if getattr(dataloader, "raw", False) \
+                else ds.get_batch
+            batches = (self._to_device(get(np.arange(i, min(i + B, hi)))[0])
+                       for i in range(lo, hi, B))
+        D = self.model.latent_dim
         mus, logvars = [], []
         for x in batches:
             batch = _decompress_batch(x, self.model.img_size)
             mu, logvar = self.model.encode(batch)
             mus.append(mu)
             logvars.append(logvar)
+        if self.mesh is not None:
+            # each share padded to `share` rows (a rank may hold none),
+            # gathered in rank order, then cut back to the n rows
+            stats = torch.zeros((share, 2 * D), device=self.device)
+            if mus:
+                stats[:hi - lo] = torch.cat([torch.cat(mus),
+                                             torch.cat(logvars)], 1)
+            mu, logvar = gather_rows(stats, self.mesh)[:n].split(D, 1)
+            return mu.contiguous(), (mu.contiguous(), logvar.contiguous())
         mu = torch.cat(mus)
         logvar = torch.cat(logvars)
         return mu, (mu, logvar)
@@ -346,12 +392,21 @@ class Evaluator:
     def _entropy_sweep(self, values, mu, logvar, M, S):
         """-mean_s (log q(values) - log M) per (l, d), one log_qz (or
         log_qz_fast) call per sample chunk. values (L, D, S), mu/logvar
-        (L, M, D)."""
+        (L, M, D). Under a mesh each rank takes its contiguous S/W of the
+        samples and one all-reduce sums the float64 partials."""
         log_M = math.log(M)
+        lo, hi = 0, S
+        if self.mesh is not None:
+            lo = S * self.mesh.rank // self.mesh.size
+            hi = S * (self.mesh.rank + 1) // self.mesh.size
         H = np.zeros(values.shape[:2], np.float64)
-        for s0 in range(0, S, _SAMPLE_CHUNK):
-            v = values[:, :, s0:s0 + _SAMPLE_CHUNK].contiguous()
+        for s0 in range(lo, hi, _SAMPLE_CHUNK):
+            v = values[:, :, s0:min(s0 + _SAMPLE_CHUNK, hi)].contiguous()
             lq = (log_qz_fast if self.fast_entropies else log_qz)(
                 v, mu, logvar)  # (L, D, s_chunk)
-            H += (log_M - lq).sum(dim=2).cpu().numpy().astype(np.float64)
+            H += (log_M - lq.double()).sum(dim=2).cpu().numpy()
+        if self.mesh is not None:
+            total = torch.from_numpy(H).to(self.device)
+            dist.all_reduce(total)
+            H = total.cpu().numpy()
         return H / S

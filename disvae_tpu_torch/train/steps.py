@@ -11,6 +11,16 @@ counter, generator). The noise is drawn from `state.generator` unless the
 caller pins it: `{"eps": (B, D)}` for the standard losses, `{"eps1",
 "eps2": (B // 2, D), "perm": (B // 2, D) int64}` for FactorVAE. Nothing
 in a step waits on the device.
+
+The padded step (`make_padded_train_step`, disvae_tpu steps.py:60-87)
+takes a batch padded to the data-axis multiple and `n_valid`, its true
+size; every batch-size dependent quantity is computed at n_valid, so the
+result equals the unpadded batch's. Under a mesh (parallel/mesh.py) each
+rank passes its contiguous share of the global batch and the step runs
+the collectives. Either way the noise is drawn at the GLOBAL valid shape
+from `state.generator`, which every rank holds in the same state, and
+each rank takes its rows (pad rows get zeros): a W-rank step consumes
+the generator exactly as the 1-process step at the global batch does.
 """
 
 from functools import partial
@@ -18,6 +28,11 @@ from functools import partial
 import torch
 
 from disvae_tpu_torch.ops.losses import draw_permutations, factor_surrogate
+from disvae_tpu_torch.parallel.mesh import (gather_rows,
+                                            make_sharded_multi_train_step,
+                                            make_sharded_padded_train_step,
+                                            make_sharded_train_step,
+                                            reduce_gradients)
 
 
 def make_optimizer(params, lr):
@@ -55,37 +70,71 @@ def _decompress_batch(batch, img_size=None):
     return batch.to(torch.float32) * (1.0 / 255.0)
 
 
-def _standard_train_step(loss_cfg, state, batch, noise=None):
+def _global_rows(batch, n_valid, mesh):
+    """(first global row of this rank's share, global valid rows)."""
+    b = batch.shape[0]
+    row0, total = (0, b) if mesh is None else (mesh.rank * b, mesh.size * b)
+    return row0, total if n_valid is None else int(n_valid)
+
+
+def _local_rows(x, row0, b):
+    """Rows [row0, row0 + b) of a global (n, ...) tensor, zero-filled past
+    its end (the pad rows of a padded batch)."""
+    out = x[row0:row0 + b]
+    if out.shape[0] < b:
+        out = torch.cat([out, out.new_zeros((b - out.shape[0],)
+                                            + tuple(out.shape[1:]))])
+    return out
+
+
+def _standard_train_step(loss_cfg, state, batch, noise=None, n_valid=None,
+                         mesh=None):
     model = state.model
     model.train()
     batch = _decompress_batch(batch, model.img_size)
     step = state.step + 1  # incremented before use, like _pre_call
+    row0, n = _global_rows(batch, n_valid, mesh)
     if noise is None:
-        eps = torch.randn((batch.shape[0], model.latent_dim),
-                          generator=state.generator, device=batch.device)
+        eps = torch.randn((n, model.latent_dim), generator=state.generator,
+                          device=batch.device)
     else:
         eps = noise["eps"]
-    recon, latent_dist, z = model(batch, eps=eps)
+    recon, latent_dist, z = model(batch, eps=_local_rows(eps, row0,
+                                                         batch.shape[0]))
+    if mesh is not None:
+        # ~30 KB at b256: each rank computes the batch-coupled terms on
+        # the global (B, D) statistics; images are never gathered
+        stats = gather_rows(torch.cat([*latent_dist, z], 1), mesh)
+        mu, logvar, z = (t.contiguous()
+                         for t in stats.split(model.latent_dim, 1))
+        latent_dist = (mu, logvar)
     loss, metrics = loss_cfg(batch, recon, latent_dist, True, step,
-                             latent_sample=z, coefs=state.coefs)
+                             latent_sample=z, n_valid=n_valid, mesh=mesh,
+                             coefs=state.coefs)
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    if mesh is not None:
+        reduce_gradients(model.parameters(), mesh)
     state.optimizer.step()
     state.step = step
     return {k: v.detach() for k, v in metrics.items()}
 
 
-def _factor_train_step(loss_cfg, state, batch, noise=None):
+def _factor_train_step(loss_cfg, state, batch, noise=None, n_valid=None,
+                       mesh=None):
     """FactorVAE step: one backward of `factor_surrogate`, then both
     optimizers step from the pre-step parameters' grads (the reference's
     end-of-iteration optimizer.step() / optimizer_d.step(),
-    losses.py:306-308)."""
+    losses.py:306-308). Under a mesh the VAE's gradients are summed over
+    ranks and the discriminator's, which every rank computes whole,
+    averaged (parallel/mesh.py reduce_gradients)."""
     model, disc = state.model, state.disc
     model.train()
     batch = _decompress_batch(batch, model.img_size)
     step = state.step + 1
     if noise is None:
-        shape = (batch.shape[0] // 2, model.latent_dim)
+        shape = (_global_rows(batch, n_valid, mesh)[1] // 2,
+                 model.latent_dim)
         noise = dict(
             eps1=torch.randn(shape, generator=state.generator,
                              device=batch.device),
@@ -94,22 +143,41 @@ def _factor_train_step(loss_cfg, state, batch, noise=None):
             perm=draw_permutations(shape, state.generator, batch.device))
     surrogate, metrics = factor_surrogate(
         loss_cfg, model, disc, batch, step, noise["eps1"], noise["eps2"],
-        noise["perm"], is_train=True, coefs=state.coefs)
+        noise["perm"], is_train=True, n_valid=n_valid, mesh=mesh,
+        coefs=state.coefs)
     state.optimizer.zero_grad(set_to_none=True)
     state.disc_optimizer.zero_grad(set_to_none=True)
     surrogate.backward()
+    if mesh is not None:
+        reduce_gradients(model.parameters(), mesh)
+        reduce_gradients(disc.parameters(), mesh, mean=True)
     state.optimizer.step()
     state.disc_optimizer.step()
     state.step = step
     return {k: v.detach() for k, v in metrics.items()}
 
 
-def make_train_step(loss_cfg):
-    """The train step of `loss_cfg`'s family: (state, batch, noise=None)
-    -> metrics."""
+def _step_fn(loss_cfg):
     if loss_cfg.needs_discriminator:
         return partial(_factor_train_step, loss_cfg)
     return partial(_standard_train_step, loss_cfg)
+
+
+def make_train_step(loss_cfg, mesh=None):
+    """The train step of `loss_cfg`'s family: (state, batch, noise=None)
+    -> metrics; with `mesh`, on this rank's share of each global batch
+    (parallel/mesh.py make_sharded_train_step)."""
+    return make_sharded_train_step(_step_fn(loss_cfg), mesh)
+
+
+def make_padded_train_step(loss_cfg, mesh=None):
+    """The step for a batch padded to the data-axis multiple: (state,
+    batch, n_valid, noise=None) -> metrics, with `n_valid` the true
+    (global) batch size. For the non-adversarial losses the result equals
+    the unpadded step's; FactorVAE's too, since its permutations are drawn
+    at the true half (the JAX package's masked draw matches only in
+    distribution). Without a mesh `batch` is the whole padded batch."""
+    return make_sharded_padded_train_step(_step_fn(loss_cfg), mesh)
 
 
 def stack_metrics(metrics, key_order):
@@ -118,19 +186,21 @@ def stack_metrics(metrics, key_order):
     return torch.stack([metrics[k] for k in key_order])
 
 
-def make_resident_multi_train_step(loss_cfg, key_order):
+def make_resident_multi_train_step(loss_cfg, key_order, mesh=None):
     """K-step super-step over a device-resident wire-format dataset:
     (state, data, idx) -> (K, n_keys) metrics, idx = (K, B) int64 batch
     indices on the data's device. The JAX package scans the K steps in one
     program; here each step gathers its batch with index_select, in idx's
-    row order."""
-    step_fn = make_train_step(loss_cfg)
+    row order. Under a mesh every rank holds the whole upload and `idx`
+    holds this rank's columns of K global batches."""
+    step_fn = _step_fn(loss_cfg)
 
-    def multi(state, data, idx):
+    def multi(state, data, idx, mesh=None):
         return torch.stack([
-            stack_metrics(step_fn(state, data.index_select(0, i)), key_order)
+            stack_metrics(step_fn(state, data.index_select(0, i), mesh=mesh),
+                          key_order)
             for i in idx])
-    return multi
+    return make_sharded_multi_train_step(multi, mesh)
 
 
 def make_eval_step(model, loss_cfg, disc=None):

@@ -12,6 +12,14 @@ Artifacts as the JAX package writes them: `train_losses.log` is CSV
 steps where `step % 50 == 1` (the reference's record_loss_every gate);
 `model-<epoch>.pt` every `checkpoint_every` epochs; `train_state.pt`, the
 full training state for a bit-exact `--resume`, written atomically.
+
+Data parallelism (disvae_tpu trainer.py, `mesh=`): every rank runs the
+Trainer on its rows of each global batch (parallel/mesh.py), holds the
+same replicated state, and logs the same global metrics; rank 0 alone
+writes the log and the checkpoints, which every rank reads on `--resume`.
+A global batch that does not divide the data axis (the ragged tail, or
+every batch when the batch size does not divide it) is padded and takes
+the mask-aware padded step.
 """
 
 import logging
@@ -26,9 +34,12 @@ from disvae_tpu_torch.data.prefetch import DevicePrefetcher
 from disvae_tpu_torch.data.resident import DEFAULT_LIMIT_BYTES, ResidentData
 from disvae_tpu_torch.models.discriminator import Discriminator
 from disvae_tpu_torch.ops.losses import RECORD_LOSS_EVERY, metric_key_order
+from disvae_tpu_torch.parallel.distributed import is_writer
+from disvae_tpu_torch.parallel.mesh import pad_to_multiple, shard_batch
 from disvae_tpu_torch.train.state import create_train_state
 from disvae_tpu_torch.train.steps import (make_disc_optimizer,
                                           make_optimizer,
+                                          make_padded_train_step,
                                           make_resident_multi_train_step,
                                           make_train_step, stack_metrics)
 from disvae_tpu_torch.utils.helpers import derive_seeds
@@ -92,6 +103,12 @@ class Trainer:
         btcvae with MSS; by default the Trainer raises ValueError as the
         reference fails there, True (the CLI's setting) skips it with a
         warning.
+    mesh : parallel.mesh.Mesh or None
+        Data parallelism: the steps run on this rank's rows of each global
+        batch with their collectives over the mesh. The loader yields
+        either this rank's share (`host_slice`; the Trainer sets
+        `pad_global_to` to the data axis when it is unset) or the global
+        batches, of which the prefetcher takes this rank's share.
     """
 
     def __init__(self, model, loss_f, lr, seed=None,
@@ -103,7 +120,8 @@ class Trainer:
                  resident="auto",
                  resume=False,
                  pipeline_epochs=True,
-                 skip_tiny_tail=False):
+                 skip_tiny_tail=False,
+                 mesh=None):
         self.loss_f = loss_f
         self.save_dir = save_dir
         self.logger = logger
@@ -113,9 +131,11 @@ class Trainer:
         self.pipeline_epochs = bool(pipeline_epochs)
         self.skip_tiny_tail = bool(skip_tiny_tail)
         self.resident_policy = resident
+        self.mesh = mesh
         self.device = next(model.parameters()).device
         self._start_epoch = 0
-        # {"epoch", "loss", "images_per_sec"} as logged, one per epoch
+        # {"epoch", "loss", "images_per_sec"} as logged, and the epoch's
+        # step calls ("dispatches"), one per epoch
         self.epoch_stats = []
 
         train_seed, disc_seed = derive_seeds(seed, 2)
@@ -132,18 +152,25 @@ class Trainer:
             model, make_optimizer(model.parameters(), lr), generator,
             disc=disc, disc_optimizer=disc_optimizer, loss_cfg=loss_f)
         self.metric_keys = metric_key_order(loss_f.name, model.latent_dim)
-        self._train_step = make_train_step(loss_f)
+        self._train_step = make_train_step(loss_f, mesh=mesh)
+        self._padded_step = make_padded_train_step(loss_f, mesh=mesh)
         self._resident_step = make_resident_multi_train_step(
-            loss_f, self.metric_keys)
+            loss_f, self.metric_keys, mesh=mesh)
+        self._warned_batch_pad = False
         self._resident = None
         self._resident_ds = _NO_DATASET  # identity key of the cached feed
         if resume:
             self.load_checkpoint()
+        # Rank 0 alone writes artifacts (every rank holds the same state);
+        # every rank read the checkpoint above.
+        self._is_writer = is_writer()
         # The log keeps only rows strictly before the resume epoch: after a
         # hard kill it may hold rows of epochs that will run again.
-        self.losses_logger = LossesLogger(
-            os.path.join(save_dir, TRAIN_LOSSES_LOGFILE),
-            resume_from_epoch=self._start_epoch if resume else None)
+        self.losses_logger = None
+        if self._is_writer:
+            self.losses_logger = LossesLogger(
+                os.path.join(save_dir, TRAIN_LOSSES_LOGFILE),
+                resume_from_epoch=self._start_epoch if resume else None)
         self.logger.info("Training Device: {}".format(self.device))
 
     @property
@@ -160,6 +187,8 @@ class Trainer:
     # ------------------------------------------------------------------
 
     def save_checkpoint(self, epoch):
+        if not self._is_writer:
+            return
         payload = {"next_epoch": epoch + 1, "state": self.state.state_dict()}
         path = os.path.join(self.save_dir, CKPT_FILE)
         tmp = path + ".tmp"
@@ -225,13 +254,15 @@ class Trainer:
             epoch_dt = now - self._epoch_anchor
             self._epoch_anchor = now
             rate = len(data_loader.dataset) / max(epoch_dt, 1e-9)
-            self.epoch_stats.append(dict(epoch=p_epoch, loss=mean_epoch_loss,
-                                         images_per_sec=rate))
+            self.epoch_stats.append(dict(
+                epoch=p_epoch, loss=mean_epoch_loss, images_per_sec=rate,
+                dispatches=self._n_dispatches(data_loader)))
             self.logger.info(
                 "Epoch: {} Average loss per image: {:.2f} "
                 "({:.0f} images/sec)".format(p_epoch + 1, mean_epoch_loss,
                                              rate))
-            self.losses_logger.log(p_epoch, storer)
+            if self.losses_logger is not None:
+                self.losses_logger.log(p_epoch, storer)
 
         def _finish_epoch(pend):
             p_epoch, packed, base_step = pend
@@ -263,7 +294,7 @@ class Trainer:
                 if self.gif_visualizer is not None:
                     self.gif_visualizer(self.model)
 
-                if epoch % checkpoint_every == 0:
+                if epoch % checkpoint_every == 0 and self._is_writer:
                     save_model(self.model, self.save_dir,
                                filename="model-{}.pt".format(epoch))
                     self.save_checkpoint(epoch)
@@ -349,14 +380,71 @@ class Trainer:
                                  "permutation).")
         return self._resident is not None
 
+    def _data_axis(self):
+        return 1 if self.mesh is None else self.mesh.size
+
+    def _n_dispatches(self, data_loader):
+        """Step calls one epoch makes (disvae_tpu trainer.py
+        `_n_dispatches`): on the resident feed, full batches go
+        `steps_per_dispatch` to a super-step, one by one when the batch
+        size does not divide the data axis, and a ragged tail singly;
+        streamed, one call per batch."""
+        n_batches = len(data_loader)
+        if self._resident is None:
+            return n_batches
+        B = data_loader.batch_size
+        if B % self._data_axis():
+            return n_batches  # every batch takes the padded step
+        n = len(data_loader.dataset)
+        ragged = bool(n % B and not getattr(data_loader, "drop_last",
+                                            False))
+        n_full = n_batches - ragged
+        return -(-n_full // self.steps_per_dispatch) + ragged
+
+    def _warn_batch_pad(self, batch_size):
+        axis = self._data_axis()
+        if batch_size % axis and not self._warned_batch_pad:
+            self._warned_batch_pad = True
+            self.logger.warning(
+                "batch_size={} is not divisible by the data axis ({}): "
+                "EVERY step takes the padded masked path and the resident "
+                "feed's K-step super-steps are off. Pick a batch size "
+                "divisible by {} for full throughput.".format(
+                    batch_size, axis, axis))
+
+    def _batch_step(self, batch, n_valid):
+        """One train step on this rank's rows; the padded step when the
+        global batch was padded. Returns the packed metrics."""
+        if n_valid is None:
+            metrics = self._train_step(self.state, batch)
+        else:
+            metrics = self._padded_step(self.state, batch, n_valid)
+        return stack_metrics(metrics, self.metric_keys)
+
+    def _resident_batch(self, wire, idx):
+        """One global batch of dataset indices from the resident upload:
+        padded to the data-axis multiple by repeating the first index (as
+        `pad_to_multiple` pads a streamed batch), then this rank's share
+        gathered on the device."""
+        n_valid = None
+        if self.mesh is not None:
+            idx, true_n = pad_to_multiple(idx, self.mesh.size)
+            if len(idx) != true_n:
+                n_valid = true_n
+            idx = shard_batch(idx, self.mesh)
+        idx = torch.from_numpy(idx.astype(np.int64)).to(self.device)
+        return self._batch_step(wire.index_select(0, idx), n_valid)
+
     def _dispatch_epoch_resident(self, data_loader):
         """Enqueue one epoch fed from the device: the full batches in
         super-steps of `steps_per_dispatch`, then the ragged tail, in the
-        loader's epoch order (the streaming feed's). Returns the packed
+        loader's epoch order (the streaming feed's). Under a mesh each rank
+        takes its columns of every global batch. Returns the packed
         metrics (their host copy already started) and the base step."""
         base_step = self.state.step
         wire = self._resident.wire
         B = data_loader.batch_size
+        self._warn_batch_pad(B)
         order = data_loader.epoch_order()
         n = len(order)
         if getattr(data_loader, "drop_last", False):
@@ -364,20 +452,22 @@ class Trainer:
         n_full = n // B
         rem = n - n_full * B
         rows = []
-        if n_full:
-            idx = torch.from_numpy(order[:n_full * B].astype(np.int64)
-                                   .reshape(n_full, B)).to(self.device)
+        if n_full and B % self._data_axis() == 0:
+            idx = order[:n_full * B].reshape(n_full, B)
+            if self.mesh is not None:  # this rank's columns
+                idx = np.ascontiguousarray(shard_batch(idx.T, self.mesh).T)
+            idx = torch.from_numpy(idx.astype(np.int64)).to(self.device)
             k = self.steps_per_dispatch
             for k0 in range(0, n_full, k):
                 rows.append(self._resident_step(self.state, wire,
                                                 idx[k0:k0 + k]))
+        else:
+            rows.extend(self._resident_batch(wire, order[i * B:(i + 1) * B])
+                        for i in range(n_full))
         if rem and self._skip_tiny_tail(rem):
             rem = 0
         if rem:
-            tail = torch.from_numpy(order[n_full * B:n].astype(np.int64))
-            batch = wire.index_select(0, tail.to(self.device))
-            rows.append(stack_metrics(self._train_step(self.state, batch),
-                                      self.metric_keys))
+            rows.append(self._resident_batch(wire, order[n_full * B:n]))
         return _pack_metrics(rows), base_step
 
     def _train_epoch(self, data_loader, epoch):
@@ -390,23 +480,37 @@ class Trainer:
         base_step = self.state.step
         rows = []
         raw_before = getattr(data_loader, "raw", None)
+        if self.mesh is not None:
+            self._warn_batch_pad(data_loader.batch_size)
+            if getattr(data_loader, "host_slice", None) is not None \
+                    and getattr(data_loader, "pad_global_to", None) is None:
+                # equal shares of every (padded) global batch, so that
+                # every rank steps on equally shaped batches
+                if self.mesh.size % data_loader.host_slice[1]:
+                    raise ValueError(
+                        "data axis ({}) must be divisible by the loader's "
+                        "host count ({})".format(self.mesh.size,
+                                                 data_loader.host_slice[1]))
+                data_loader.pad_global_to = self.mesh.size
         try:
             if raw_before is not None and hasattr(data_loader.dataset,
                                                   "get_batch_raw"):
                 # stream the uint8 wire format: 4x fewer bytes to copy; the
                 # step decompresses on the device
                 data_loader.raw = True
-            iterator = DevicePrefetcher(data_loader, self.device)
+            iterator = DevicePrefetcher(data_loader, self.device,
+                                        mesh=self.mesh)
             if self.is_progress_bar:
                 from tqdm import tqdm
                 iterator = tqdm(iterator, desc="Epoch {}".format(epoch + 1),
-                                leave=False, total=len(data_loader))
-            for batch in iterator:
-                if self._skip_tiny_tail(batch.shape[0]):
+                                leave=False,
+                                total=self._n_dispatches(data_loader))
+            for batch, n_valid in iterator:
+                true_n = (batch.shape[0] * self._data_axis()
+                          if n_valid is None else n_valid)
+                if self._skip_tiny_tail(true_n):
                     continue
-                rows.append(stack_metrics(self._train_step(self.state,
-                                                           batch),
-                                          self.metric_keys))
+                rows.append(self._batch_step(batch, n_valid))
         finally:
             if raw_before is not None:
                 data_loader.raw = raw_before

@@ -440,3 +440,118 @@ def test_gif_frame_leaves_train_steps_unchanged(cuda, tmp_path):
                          states[1].model.state_dict().values()):
         assert torch.equal(a, b), k
     assert len(gif.images) == 1 and gif.images[0].shape == (662, 662, 3)
+
+
+# ----------------------------------------------------------------------
+# data parallelism at world size 1 over NCCL
+# ----------------------------------------------------------------------
+
+@pytest.fixture
+def nccl_mesh(cuda, monkeypatch):
+    """A one-rank NCCL group formed from a launcher's environment, as
+    `torchrun --nproc_per_node 1` gives it; destroyed afterwards."""
+    import socket
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from disvae_tpu_torch.parallel import distributed
+    from disvae_tpu_torch.parallel.mesh import create_mesh
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                     MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(k, v)
+    assert distributed.initialize(cuda=True, timeout=timedelta(seconds=120))
+    try:
+        assert dist.get_backend() == "nccl"
+        yield create_mesh()
+    finally:
+        distributed.shutdown()
+
+
+@pytest.mark.gpu
+def test_collectives_on_card_at_world_size_1(nccl_mesh, cuda):
+    """The row gather's forward is a copy and its backward this rank's
+    slice; the differentiable sum and the flat gradient all-reduce leave
+    one rank's values as they are."""
+    from disvae_tpu_torch.parallel.mesh import (all_reduce_sum, gather_rows,
+                                                reduce_gradients)
+    x = torch.randn(256, 30, device=cuda, requires_grad=True)
+    w = torch.randn(256, 30, device=cuda)
+    y = gather_rows(x, nccl_mesh)
+    assert y.device == x.device and torch.equal(y, x)
+    total = all_reduce_sum((y * w).sum(), nccl_mesh)
+    assert torch.equal(total, (x * w).sum())
+    total.backward()
+    assert torch.equal(x.grad, w)
+    lin = torch.nn.Linear(30, 4).to(cuda)
+    lin(x.detach()).square().sum().backward()
+    before = [p.grad.clone() for p in lin.parameters()]
+    reduce_gradients(lin.parameters(), nccl_mesh)
+    for a, p in zip(before, lin.parameters()):
+        assert torch.equal(a, p.grad)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("loss", ["btcvae", "factor"])
+def test_dp_step_on_card_is_the_plain_step(nccl_mesh, cuda, loss):
+    """At world size 1 under ``highest`` one DP step from the plain step's
+    state, on the same batch and pinned noise, leaves the parameters and
+    Adam's moments within 1e-6 of their scale (celeba shapes, b64)."""
+    from dp_cases import celeba_batch, celeba_state, pinned_noise, state_diff
+
+    from disvae_tpu_torch.train.steps import make_train_step
+    batch = celeba_batch(64, cuda)
+    cfg, plain = celeba_state(loss, cuda)
+    _, dp = celeba_state(loss, cuda)
+    noise = pinned_noise(cfg, 64, cuda)
+    want = make_train_step(cfg)(plain, batch, noise)
+    got = make_train_step(cfg, nccl_mesh)(dp, batch, noise)
+    torch.cuda.synchronize()
+    for k in want:
+        assert float(got[k]) == pytest.approx(float(want[k]), rel=1e-6,
+                                              abs=1e-6), k
+    assert state_diff(plain, dp)[0] <= 1e-6
+
+
+@pytest.mark.gpu
+def test_padded_step_on_card_with_hook(nccl_mesh, cuda):
+    """btcvae at b256 under ``default`` with the K1/K2 hook: 255 real rows
+    padded to 256 through the DP padded step, against the plain step on
+    the 255 rows, the bounds of tests/test_train.py::
+    test_padded_step_matches_unpadded (metrics rel 1e-4, abs 1e-4;
+    parameters atol 2e-4, where the gradient is at least 1% of its
+    tensor's largest). The padded step launches K1 and K2 once each."""
+    from dp_cases import celeba_batch, celeba_state, settled_param_diff
+
+    from disvae_tpu_torch.models import burgess
+    from disvae_tpu_torch.ops import convt_bwd as C
+    from disvae_tpu_torch.ops.precision import configure
+    from disvae_tpu_torch.parallel.mesh import pad_to_multiple
+    from disvae_tpu_torch.train.steps import (make_padded_train_step,
+                                              make_train_step)
+    batch = celeba_batch(255, cuda)
+    cfg, plain = celeba_state("btcvae", cuda)
+    _, dp = celeba_state("btcvae", cuda)
+    padded, n_valid = pad_to_multiple(batch.cpu().numpy(), 256)
+    padded = torch.from_numpy(padded).to(cuda)
+    configure("default")
+    burgess.set_final_convt_impl(C.conv_transpose2d_pl)
+    try:
+        want = make_train_step(cfg)(plain, batch)
+        before = (C.convt3_dw.launches, C.convt3_dx.launches)
+        got = make_padded_train_step(cfg, nccl_mesh)(dp, padded, n_valid)
+        launched = (C.convt3_dw.launches - before[0],
+                    C.convt3_dx.launches - before[1])
+        torch.cuda.synchronize()
+    finally:
+        burgess.set_final_convt_impl(burgess.conv_transpose2d)
+        configure("highest")
+    assert n_valid == 255 and padded.shape[0] == 256
+    assert launched == (1, 1)
+    for k in want:
+        assert float(got[k]) == pytest.approx(float(want[k]), rel=1e-4,
+                                              abs=1e-4), k
+    assert settled_param_diff(plain, dp) <= 2e-4
