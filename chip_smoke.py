@@ -18,7 +18,8 @@ Phases (any failure raises and exits non-zero; there is no CPU carry-on):
    float32 policy (TF32 off for matmuls and cuDNN convs).
 2. Build: the CUDA sources disvae_tpu_torch/csrc/log_qz.cu and
    convt3_bwd.cu, and the floor kernel of disvae_tpu_torch/probe_convt.py
-   (always this checkout's), one nvcc each, started together (into
+   (always this checkout's), one nvcc each, and the native host gather
+   (disvae_tpu_torch/native/gather.cpp, g++), started together (into
    build/disvae_tpu_torch/), with compile times and ptxas register/spill
    lines; the issue slots per log-density of K3's inner loop, by kind,
    from its SASS (cuobjdump).
@@ -52,7 +53,9 @@ Phases (any failure raises and exits non-zero; there is no CPU carry-on):
    tools/fabricate_dsprites.py, a seeded-init Burgess 64x64x1 latent-10
    checkpoint written with the port's save_model, then the port's CLI
    `<name> --is-eval-only --is-metrics -l btcvae`. Checks finite MIG,
-   AAM and test losses and that the run launched K3; then the entropy
+   AAM and test losses, that the run launched K3 and that the streamed
+   encode gathered each batch through the native gather once; then the
+   entropy
    estimate on a 4,096-image subset, kernel against the CPU plain version;
    then the entropy phase again in a torch.profiler window (wall, device
    busy, device time by kernel), and its seconds beside K3's 30 launches
@@ -107,6 +110,26 @@ Phases (any failure raises and exits non-zero; there is no CPU carry-on):
    of phase 5 under the group (30 K3 launches, MIG and AAM within 1e-6 of
    phase 5's, encode and entropy seconds beside it). Every line carries
    the card's name and power limit; the group is destroyed at the end.
+14. Tensor parallelism at model size 1, in phase 13's group: the
+   FactorVAE step of `make_tp_train_step` (all six discriminator layers
+   column-parallel over the one-rank model group) at b256 celeba shapes
+   under `highest` against the plain step from the same state and pinned
+   noise (params, Adam moments and metrics within 1e-6 of their scale,
+   and whether bitwise equal); the same step under `default` with the
+   K1/K2 hook (one K1 and one K2 launch) with its collectives counted by
+   group; the host-clock TP step against the DP step, 40 steps in turns;
+   the Trainer with the TP discriminator, 1 epoch + resume from
+   train_state.pt (which must hold the whole discriminator) + 1 epoch
+   against 2 straight, bit for bit. Model sizes above 1 need a rank per
+   card and are held on the CPU over gloo only (tests/test_torch_tp.py).
+15. Native host gather: get_batch, get_batch_raw and get_batch_bits
+   bitwise equal to numpy on 1,000 seeded random indices of the memmapped
+   dsprites lattice and of the celeba subset; host ms per b256 batch,
+   native at its thread count and at N_THREADS against numpy, median of
+   20; phase 5's streamed eval again with
+   numpy gathers, in turns with the native gather (MIG and AAM bitwise
+   phase 5's; encode seconds of each). Every line of phases 14 and 15
+   carries the card's name and power limit.
 
 Its last two lines are JSON: the kernels' record (per kernel `ms`, the
 L2-cold time, `warm_ms`, `plain_ms`, `bound_ms`/`bound_us`, `bound_by`,
@@ -151,6 +174,7 @@ CONVT_F32, CONVT_BF16, CONVT_VS_CUDNN = 1e-5, 1e-3, 3e-2
 CONVT_SHAPES = [(256, 32, 32, 3), (128, 32, 32, 3), (256, 16, 32, 1),
                 (6, 4, 8, 5)]
 N_CELEBA = 25637  # 100 batches of 256 and a ragged tail of 37
+N_DSPRITES = 737280  # the full factor lattice
 EXPORT_ATOL = 1e-5  # exported program vs ServingModel, float32 both
 # cli_viz's default grid: -r 6 rows, -c 7 columns of 64 px cells, 2 px pads
 VIZ_ROWS, VIZ_COLS, VIZ_GIF_FRAMES = 6, 7, 15
@@ -812,7 +836,7 @@ def phase_convt_kernels(C, probe, flat):
     return record
 
 
-def phase_main_path(K, scratch):
+def phase_main_path(K, scratch, smi):
     root = os.path.join(scratch, "data")
     t0 = time.perf_counter()
     subprocess.run([sys.executable,
@@ -839,16 +863,20 @@ def phase_main_path(K, scratch):
         dataset="dsprites", img_size=[1, 64, 64], latent_dim=10,
         model_type="Burgess", loss="btcvae"))
 
+    gathers = _native_gathers()
     cwd = os.getcwd()
     os.chdir(scratch)
     try:
         K.log_qz.launches = 0
+        for fn in gathers:
+            fn.calls = 0
         t0 = time.perf_counter()
         _, evaluator = cli.main(cli.parse_arguments(
             [name, "--is-eval-only", "--is-metrics", "-l", "btcvae",
              "--no-progress-bar", "-s", str(SEED)]))
         seconds = time.perf_counter() - t0
         launches = K.log_qz.launches
+        calls = {fn.__name__: fn.calls for fn in gathers}
     finally:
         os.chdir(cwd)
 
@@ -865,6 +893,13 @@ def phase_main_path(K, scratch):
             **losses))
     if launches <= 0:
         raise AssertionError("the eval run never launched the log_qz kernel")
+    if gathers:
+        batches = -(-N_DSPRITES // 1000)
+        log("[{}] native gather calls in the eval: {} ({} encode batches "
+            "of 1,000)".format(smi, json.dumps(calls), batches))
+        if calls["gather_u8"] != batches:
+            raise AssertionError("the streamed encode did not gather each "
+                                 "batch natively once: {}".format(calls))
     if evaluator._resident is not None:
         raise AssertionError("`--resident-data auto` built an eval-only "
                              "upload; it streams unless handed one")
@@ -1418,6 +1453,109 @@ def phase_viz(scratch, runs, datasets):
     log("viz path: PIL, imageio and pandas never imported")
 
 
+def _native_gathers():
+    """The native gather's three functions, or () for a checkout without
+    `disvae_tpu_torch/native` (an older commit under --package-root)."""
+    if importlib.util.find_spec("disvae_tpu_torch.native") is None:
+        return ()
+    from disvae_tpu_torch import native
+    return (native.gather_u8_f32, native.gather_u8_mul, native.gather_u8)
+
+
+def phase_native(scratch, smi, datasets, eval_run, build_seconds):
+    """The native host gather: get_batch, get_batch_raw and
+    get_batch_bits bitwise equal to numpy (the same methods on the numpy
+    branch) on 1,000 seeded random indices of the memmapped dsprites
+    lattice and of the celeba subset; host ms per b256 batch, native
+    at its thread count and at N_THREADS against numpy, median of 20;
+    then phase 5's streamed eval with numpy gathers against it with the
+    native gather, in turns (native, numpy, numpy, native): MIG and AAM
+    bitwise equal, the encode seconds of each."""
+    from disvae_tpu_torch import cli, native
+    from disvae_tpu_torch.utils.modelIO import load_metadata
+
+    def say(fmt, *args):
+        log("[{}] {}".format(smi, fmt.format(*args)))
+
+    say("native gather built with g++ (-O3; up to {} threads a call, one "
+        "per {} MB written) in {:.2f} s in phase 2", native.N_THREADS,
+        native.BYTES_PER_THREAD >> 20, build_seconds)
+    rng = np.random.default_rng(SEED)
+    for name in ("dsprites", "celeba"):
+        ds = datasets.get_dataset(name)()
+        ref = datasets.get_dataset(name)()
+        ref._native = lambda: False  # the same methods' numpy branch
+        if not ds._native() or not isinstance(ds.imgs, np.memmap):
+            raise AssertionError("the {} store is not a C-contiguous uint8 "
+                                 "memmap".format(name))
+        idcs = rng.integers(0, len(ds), 1000)
+        for method in ("get_batch", "get_batch_raw", "get_batch_bits"):
+            got = getattr(ds, method)(idcs)[0]
+            want = getattr(ref, method)(idcs)[0]
+            if got.dtype != want.dtype or not np.array_equal(got, want):
+                raise AssertionError("native {}.{} differs from numpy"
+                                     .format(name, method))
+        times = {}
+        per_thread = native.BYTES_PER_THREAD
+        for method in ("get_batch", "get_batch_raw"):
+            # the native gather at its own thread count, at N_THREADS
+            # whatever the bytes, and numpy
+            for who, d, bytes_per_thread in (
+                    ("native", ds, per_thread), ("all", ds, 1),
+                    ("numpy", ref, per_thread)):
+                native.BYTES_PER_THREAD = bytes_per_thread
+                ms = []
+                try:
+                    for _ in range(20):
+                        batch = rng.integers(0, len(ds), 256)
+                        t0 = time.perf_counter()
+                        getattr(d, method)(batch)
+                        ms.append((time.perf_counter() - t0) * 1e3)
+                finally:
+                    native.BYTES_PER_THREAD = per_thread
+                times[method, who] = statistics.median(ms)
+            # the gather writes float32 rows for get_batch, uint8 otherwise
+            times[method] = native.threads(256 * ds.imgs[0].nbytes * (
+                4 if method == "get_batch" else 1))
+        say("native gather, {} ({:,} images, memmap): get_batch, "
+            "get_batch_raw and get_batch_bits bitwise equal to numpy on "
+            "1,000 random indices; host ms per b256 batch, median of 20, "
+            "native at its thread count / native at {} threads / numpy: "
+            "get_batch ({} thread(s)) {:.3f} / {:.3f} / {:.3f}, get_batch_raw "
+            "({}, {} thread(s)) {:.3f} / {:.3f} / {:.3f}", name, len(ds),
+            native.N_THREADS, times["get_batch"],
+            times["get_batch", "native"], times["get_batch", "all"],
+            times["get_batch", "numpy"],
+            "bits" if ds.is_binary else "bytes", times["get_batch_raw"],
+            times["get_batch_raw", "native"], times["get_batch_raw", "all"],
+            times["get_batch_raw", "numpy"])
+
+    exp_dir, metrics, _ = eval_run
+    argv = [os.path.basename(exp_dir), "--is-eval-only", "--is-metrics",
+            "-l", "btcvae", "--no-test", "--no-progress-bar", "-s", str(SEED)]
+    runs = {"native": [], "numpy": []}
+    native_method = datasets.BaseDataset._native
+    for who in ("native", "numpy", "numpy", "native"):
+        if who == "numpy":
+            datasets.BaseDataset._native = lambda self: False
+        try:
+            _, ev, _ = _cli_run(cli, scratch, argv)
+        finally:
+            datasets.BaseDataset._native = native_method
+        got = load_metadata(exp_dir, filename="metrics.log")
+        runs[who].append(ev.last_metrics_timings["encode_seconds"])
+        if (got["MIG"], got["AAM"]) != (metrics["MIG"], metrics["AAM"]):
+            raise AssertionError("the {} eval's MIG/AAM {} differ from "
+                                 "phase 5's {}".format(who, got, metrics))
+    say("streamed MIG/AAM eval (dsprites 737,280 images, in turns: native, "
+        "numpy, numpy, native): encode {} s with the native gather, {} s "
+        "with numpy; MIG {} AAM {}, bitwise phase 5's in every run",
+        " / ".join("{:.3f}".format(t) for t in runs["native"]),
+        " / ".join("{:.3f}".format(t) for t in runs["numpy"]),
+        metrics["MIG"], metrics["AAM"])
+
+
+
 def _dp_cases():
     """The data-parallel cases the GPU tests use too (tests/dp_cases.py)."""
     tests = os.path.join(REPO, "tests")
@@ -1571,6 +1709,196 @@ def _dp_step_times(C, mesh, say, datasets):
         host_ms(lambda: reduce_gradients(model.parameters(), mesh)))
 
 
+def _count_model_calls(mesh, fn):
+    """Run `fn` counting the collectives of parallel/mesh.py by group:
+    {"model": calls over the model group, "data": calls over the data
+    group}."""
+    import disvae_tpu_torch.parallel.mesh as M
+    counts = {"model": 0, "data": 0}
+    gather, reduce = M._all_gather, M.dist.all_reduce
+
+    def counted(f):
+        def call(*args, group=None, **kwargs):
+            counts["model" if group is mesh.model_group else "data"] += 1
+            return f(*args, group=group, **kwargs)
+        return call
+    M._all_gather, M.dist.all_reduce = counted(gather), counted(reduce)
+    try:
+        out = fn()
+    finally:
+        M._all_gather, M.dist.all_reduce = gather, reduce
+    return out, counts
+
+
+def _tp_step(cfg, mesh, state):
+    """The FactorVAE step with the discriminator column-parallel over the
+    model group, at any model size (parallel/mesh.py make_tp_train_step)."""
+    from disvae_tpu_torch.parallel.mesh import make_tp_train_step
+    from disvae_tpu_torch.train.steps import _factor_train_step
+    return make_tp_train_step(functools.partial(_factor_train_step, cfg),
+                              mesh, state)
+
+
+def _tp_parity(C, mesh, say):
+    """One TP FactorVAE step at b256 celeba shapes against the plain step
+    from the same state and pinned noise under `highest`; then the same
+    step under `default` with the K1/K2 hook (one K1 and one K2 launch),
+    its model-axis collectives counted."""
+    from disvae_tpu_torch.models import burgess
+    from disvae_tpu_torch.ops.precision import configure
+    from disvae_tpu_torch.train.steps import make_train_step
+    cases = _dp_cases()
+    dev = torch.device("cuda")
+    batch = cases.celeba_batch(256, dev)
+    cfg, plain = cases.celeba_state("factor", dev)
+    _, tp = cases.celeba_state("factor", dev)
+    noise = cases.pinned_noise(cfg, 256, dev)
+    want = make_train_step(cfg)(plain, batch, noise)
+    got = _tp_step(cfg, mesh, tp)(tp, batch, noise)
+    torch.cuda.synchronize()
+    d_metrics = max(abs(float(got[k]) - float(want[k]))
+                    / max(abs(float(want[k])), 1e-30) for k in want)
+    d_state, equal = cases.state_diff(plain, tp)
+    split = sum(isinstance(m, type(tp.disc.lin1)) for m in tp.disc.children())
+    say("TP FactorVAE step at b256, model size 1 ({} of 6 discriminator "
+        "layers column-parallel; highest) against the plain step: metrics "
+        "max rel {:.3e}; params and Adam moments max |d| / max |ref| {:.3e};"
+        " bitwise equal: {}", split, d_metrics, d_state, equal)
+    if split != 6 or d_state > DP_PARITY or d_metrics > DP_PARITY:
+        raise AssertionError("the TP step left another state")
+
+    _, tp = cases.celeba_state("factor", dev)
+    step = _tp_step(cfg, mesh, tp)
+    configure("default")
+    burgess.set_final_convt_impl(C.conv_transpose2d_pl)
+    try:
+        C.convt3_dw.launches = C.convt3_dx.launches = 0
+        got, calls = _count_model_calls(mesh, lambda: step(tp, batch, noise))
+        launches = (C.convt3_dw.launches, C.convt3_dx.launches)
+        torch.cuda.synchronize()
+    finally:
+        burgess.set_final_convt_impl(burgess.conv_transpose2d)
+        configure("highest")
+    say("TP FactorVAE step at b256 (default, K1/K2 hook): K1 launches {}, "
+        "K2 launches {}; collectives per step: {} over the model group, {} "
+        "over the data group; loss {:.4f}, discrim_loss {:.4f}", *launches,
+        calls["model"], calls["data"], float(got["loss"]),
+        float(got["discrim_loss"]))
+    if launches != (1, 1) or not all(math.isfinite(float(v))
+                                     for v in got.values()):
+        raise AssertionError("the hooked TP step: launches {}".format(
+            launches))
+    return calls
+
+
+def _tp_step_times(C, mesh, say, datasets):
+    """Host-clock ms per b256 FactorVAE step over 40 steps, the TP step
+    against the DP step (both over the one-rank group), in turns, on the
+    resident celeba subset under `default` with the K1/K2 hook."""
+    from disvae_tpu_torch.data.resident import ResidentData
+    from disvae_tpu_torch.models import burgess
+    from disvae_tpu_torch.ops.precision import configure
+    from disvae_tpu_torch.train.steps import make_train_step
+    cases = _dp_cases()
+    dev = torch.device("cuda")
+    ds = datasets.get_dataset("celeba")()
+    wire = ResidentData(ds, dev).wire
+    idx = torch.from_numpy(np.random.default_rng(SEED).permutation(
+        len(ds))[:100 * 256].reshape(100, 256)).to(dev)
+    runs, cursor = {}, {}
+    for name in ("DP", "TP"):
+        cfg, state = cases.celeba_state("factor", dev, n_data=len(ds))
+        step = (make_train_step(cfg, mesh) if name == "DP"
+                else _tp_step(cfg, mesh, state))
+        runs[name], cursor[name] = (step, state), 0
+
+    def run(name, n):
+        step, state = runs[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step(state, wire.index_select(0, idx[cursor[name] % 100]))
+            cursor[name] += 1
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    configure("default")
+    burgess.set_final_convt_impl(C.conv_transpose2d_pl)
+    try:
+        for name in runs:
+            run(name, 10)  # warm-up
+        times = {k: [] for k in runs}
+        for name in ("DP", "TP", "TP", "DP"):
+            times[name].append(run(name, 40))
+    finally:
+        burgess.set_final_convt_impl(burgess.conv_transpose2d)
+        configure("highest")
+    say("b256 FactorVAE train step, host clock, 40 steps (default, K1/K2 "
+        "hook, resident, world size 1): DP {} ms, TP at model size 1 {} ms "
+        "(in turns: DP, TP, TP, DP)", " / ".join(
+            "{:.3f}".format(t) for t in times["DP"]),
+        " / ".join("{:.3f}".format(t) for t in times["TP"]))
+
+
+def _tp_resume(mesh, scratch, say, datasets):
+    """The Trainer with the discriminator column-parallel at model size 1
+    (`make_tp_train_step` on its state), FactorVAE b256 on 5,120 celeba
+    images under `highest`: 2 epochs straight against 1 epoch, then a new
+    Trainer resumed from its train_state.pt for the 2nd; the checkpoint
+    holds the whole discriminator."""
+    from disvae_tpu_torch.models.discriminator import Discriminator
+    from disvae_tpu_torch.models.vae import init_specific_model
+    from disvae_tpu_torch.ops import losses as PL
+    from disvae_tpu_torch.train.trainer import CKPT_FILE, Trainer
+    ds = datasets.get_dataset("celeba")()
+    sub = datasets.ArrayDataset(np.asarray(ds.imgs[:5120]))
+    cfg = PL.get_loss_f("factor", rec_dist="bernoulli", reg_anneal=0,
+                        factor_G=6.4, latent_dim=10, lr_disc=1e-5,
+                        n_data=len(sub))
+
+    def trainer(save_dir, resume=False):
+        model = init_specific_model(
+            "Burgess", (3, 64, 64), 10,
+            generator=torch.Generator().manual_seed(SEED), device="cuda")
+        tr = Trainer(model, cfg, lr=1e-4, seed=SEED, save_dir=save_dir,
+                     is_progress_bar=False, resume=resume, mesh=mesh)
+        _tp_step(cfg, mesh, tr.state)
+        return tr
+
+    def loader():
+        return datasets.DataLoader(sub, batch_size=256, shuffle=True,
+                                   seed=SEED)
+
+    dirs = [os.path.join(scratch, "tp_resume", k) for k in ("straight",
+                                                            "resumed")]
+    straight = trainer(dirs[0])
+    straight(loader(), epochs=2, checkpoint_every=1)
+    trainer(dirs[1])(loader(), epochs=1, checkpoint_every=1)
+    payload = torch.load(os.path.join(dirs[1], CKPT_FILE),
+                         map_location="cpu", weights_only=True)["state"]
+    whole = {k: tuple(v.shape) for k, v in Discriminator().state_dict()
+             .items()}
+    saved = {k: tuple(v.shape) for k, v in payload["disc"].items()}
+    moments = [tuple(s["exp_avg"].shape) for s in
+               payload["disc_optimizer"]["state"].values()]
+    resumed = trainer(dirs[1], resume=True)
+    resumed(loader(), epochs=2, checkpoint_every=1)
+    torch.cuda.synchronize()
+    a, b = straight.state.state_dict(), resumed.state.state_dict()
+    equal = all(torch.equal(x, b[part][k]) for part in ("model", "disc")
+                for k, x in a[part].items())
+    say("TP Trainer at model size 1 (FactorVAE b256, 5,120 celeba images, "
+        "highest): train_state.pt holds the whole discriminator: {}; 1 "
+        "epoch + resume + 1 equals 2 straight, bit for bit: {} ({} steps)",
+        saved == whole and moments == list(whole.values()), equal,
+        resumed.state.step)
+    if saved != whole or moments != list(whole.values()) or not equal \
+            or resumed.state.step != straight.state.step:
+        raise AssertionError("TP resume: checkpoint {} , equal {}".format(
+            saved, equal))
+
+
+
 def phase_data_parallel(C, K, scratch, smi, datasets, plain_train,
                         eval_run):
     """The data-parallel path at world size 1 over NCCL: the group formed
@@ -1674,6 +2002,12 @@ def phase_data_parallel(C, K, scratch, smi, datasets, plain_train,
             raise AssertionError("DP eval: mesh {}, {} launches, |dMIG| {}, "
                                  "|dAAM| {}".format(ev.mesh, launches, d_mig,
                                                     d_aam))
+
+        # tensor parallelism of the FactorVAE discriminator at model size 1
+        calls = _tp_parity(C, mesh, say)
+        _tp_step_times(C, mesh, say, datasets)
+        _tp_resume(mesh, scratch, say, datasets)
+        return calls
     finally:
         distributed.shutdown()
         for k in env:
@@ -1717,7 +2051,18 @@ def main(argv=None):
         phase_sass(paths["log_qz"], getattr(K, "SAMPLES_PER_THREAD", None))
         log(json.dumps(phase_kernels(K, strict, clock=True)))
         return 0
-    paths = phase_build({"log_qz": K, "convt3_bwd": C, "flat_floor": floor})
+    builds = {"log_qz": K, "convt3_bwd": C, "flat_floor": floor}
+    native_build = {}
+    if _native_gathers():
+        from disvae_tpu_torch import native
+
+        def build_native():
+            t0 = time.perf_counter()
+            path = native.build()
+            native_build["seconds"] = time.perf_counter() - t0
+            return path, ""
+        builds["native_gather"] = types.SimpleNamespace(build=build_native)
+    paths = phase_build(builds)
     phase_sass(paths["log_qz"], getattr(K, "SAMPLES_PER_THREAD", None))
     record = phase_kernels(K, strict)
     convt = phase_convt_kernels(C, probe, paths["flat_floor"])
@@ -1726,7 +2071,7 @@ def main(argv=None):
     scratch = tempfile.mkdtemp(prefix="chip_smoke_", dir=build_dir)
     try:
         exp_dir, datasets, launches, metrics, timings = phase_main_path(
-            K, scratch)
+            K, scratch, smi)
         log("entropy phase {:.3f} s against K3's 30 launches timed alone: "
             "{:.3f} s L2-cold, {:.3f} s warm".format(
                 timings["entropy_seconds"], record["eval_sum_ms"] / 1e3,
@@ -1742,9 +2087,11 @@ def main(argv=None):
         if strict:
             phase_data_parallel(C, K, scratch, smi, datasets, train_stats,
                                 (exp_dir, metrics, timings))
+            phase_native(scratch, smi, datasets, (exp_dir, metrics, timings),
+                         native_build["seconds"])
         else:
-            log("data-parallel phase skipped: it runs this checkout's "
-                "package only")
+            log("data-parallel, tensor-parallel and native-gather phases "
+                "skipped: they run this checkout's package only")
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 

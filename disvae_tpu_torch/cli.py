@@ -25,8 +25,13 @@ given, world size 1 included, the run is data-parallel: `-b` is the
 global batch and each rank feeds its B/W rows (a host-sliced loader), the
 steps compute the loss at the global batch (parallel/mesh.py), the eval
 splits its encode and entropy sweeps over the ranks, and rank 0 alone
-writes `results/<name>/`. `--model-parallel` > 1 (tensor parallelism) is
-not ported and raises NotImplementedError naming ROADMAP.md.
+writes `results/<name>/`. `--model-parallel M` lays the W ranks out as W/M
+data ranks of M model ranks each: the ranks of one model group feed the
+same B/(W/M) rows and hold the FactorVAE discriminator column-parallel
+(tensor parallelism; `train_state.pt` keeps it whole, so `--resume` works
+at any M). W must divide by M, and M > 1 without a process group raises
+ValueError. At M = 1 the discriminator stays replicated, as in the JAX
+CLI.
 
 The device is CUDA unless `--no-cuda` asks for the CPU; without a GPU
 and without `--no-cuda` the CLI raises rather than run on the CPU. The
@@ -115,8 +120,10 @@ def parse_arguments(args_to_parse):
                          help='Error out on the first NaN in a backward '
                               '(autograd anomaly detection).')
     general.add_argument('--model-parallel', type=int, default=1,
-                         help='Devices per tensor-parallel group (not '
-                              'ported yet; only 1 is accepted).')
+                         help='Ranks per tensor-parallel group (the '
+                              'mesh\'s "model" axis; FactorVAE '
+                              'discriminator only). The world size must '
+                              'divide by it.')
     general.add_argument('--no-mesh', action='store_true', default=False,
                          help='Train single-device even under a process '
                               'group of one rank (data parallelism over '
@@ -267,29 +274,30 @@ def main(args):
     stream.setFormatter(formatter)
     logger.addHandler(stream)
 
-    if args.model_parallel != 1:
-        raise NotImplementedError("--model-parallel is not ported yet "
-                                  "(ROADMAP.md, Queue 1 item 1).")
-
     # The process group first: it picks this rank's GPU. Data parallelism
     # is the default whenever a group is up, world size 1 included, so
     # `torchrun --nproc_per_node 1` runs every collective of the path.
     distributed.initialize(cuda=not args.no_cuda)
     mesh = None
-    if dist.is_initialized():
-        if args.no_mesh:
-            if dist.get_world_size() > 1:
-                # without the mesh there are no collectives: each rank
-                # would silently train its own model on its own rows
-                raise ValueError("--no-mesh is not valid on a multi-rank "
-                                 "run: host-sliced feeding only makes "
-                                 "sense as the feed of a data-parallel "
-                                 "mesh.")
-        else:
-            mesh = create_mesh(model_parallel=args.model_parallel)
-            logger.info("Data-parallel mesh: rank {} of {} (backend {})"
-                        .format(mesh.rank, mesh.size, dist.get_backend()))
-            if args.seed is None:
+    if args.no_mesh:
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            # without the mesh there are no collectives: each rank would
+            # silently train its own model on its own rows
+            raise ValueError("--no-mesh is not valid on a multi-rank run: "
+                             "host-sliced feeding only makes sense as the "
+                             "feed of a data-parallel mesh.")
+    elif dist.is_initialized() or args.model_parallel > 1:
+        # without a group, model_parallel > 1 raises JAX's ValueError (one
+        # device does not divide by it)
+        mesh = create_mesh(model_parallel=args.model_parallel)
+        logger.info("Data-parallel mesh: rank {} of {} (backend {})"
+                    .format(mesh.rank, mesh.size, dist.get_backend()))
+        if mesh.model_size > 1:
+            logger.info("Tensor-parallel discriminator: {} data x {} model "
+                        "ranks; this rank is data {} model {}".format(
+                            mesh.data_size, mesh.model_size,
+                            mesh.data_rank, mesh.model_rank))
+        if args.seed is None:
                 # every rank must draw the same init, noise and shuffles
                 seed = [int(time.time()) & 0x7FFFFFFF]
                 dist.broadcast_object_list(seed, src=0)
@@ -330,7 +338,8 @@ def main(args):
         # (seed, epoch)-keyed permutation is the same on every rank
         host_slice = pad_global_to = None
         if mesh is not None:
-            host_slice, pad_global_to = (mesh.rank, mesh.size), mesh.size
+            host_slice = (mesh.data_rank, mesh.data_size)
+            pad_global_to = mesh.data_size
         train_loader = get_dataloaders(args.dataset,
                                        batch_size=args.batch_size,
                                        logger=logger, seed=args.seed,

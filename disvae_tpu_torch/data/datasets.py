@@ -1,13 +1,14 @@
-"""Host-side data pipeline feeding the evaluator (numpy only).
+"""Host-side data pipeline: datasets, the loader and the batch gathers.
 
 Copied from disvae_tpu/data/datasets.py: importing it from the JAX package
 would load JAX through disvae_tpu/__init__.py. Same registry, `DataLoader`,
 `BaseDataset.get_batch/get_batch_raw/get_batch_bits`, `ArrayDataset` and the
 five datasets, over the same uint8 NHWC caches that the `tools/fabricate_*.py`
-scripts write. Two differences:
+scripts write. Batches of a C-contiguous uint8 store (an array or a disk
+memmap) are gathered by the port's copy of the JAX package's native host
+gather (`disvae_tpu_torch/native`, built with g++ at first use); other
+stores by numpy, with the same bits. One difference:
 
-- Batches are gathered with numpy. The JAX package's native fused gather
-  (`disvae_tpu/native`) is not reused yet (ROADMAP.md).
 - The port never downloads. A missing source file raises with the path to
   place it at (or the `tools/fabricate_*.py` script that writes the cache).
 
@@ -25,6 +26,8 @@ import struct
 import zipfile
 
 import numpy as np
+
+from disvae_tpu_torch import native
 
 DATA_ROOT = os.environ.get("DISVAE_DATA_ROOT",
                            os.path.join(os.getcwd(), "data"))
@@ -201,10 +204,20 @@ class BaseDataset(abc.ABC):
     def __len__(self):
         return len(self.imgs)
 
+    def _native(self):
+        """The native gather serves C-contiguous uint8 stores (arrays and
+        memmaps alike)."""
+        return (isinstance(self.imgs, np.ndarray)
+                and self.imgs.dtype == np.uint8
+                and self.imgs.flags["C_CONTIGUOUS"])
+
     def get_batch(self, idcs):
         """Gather a batch: float32 (B, H, W, C) in [0,1] plus labels."""
         idcs = np.asarray(idcs)
-        imgs = np.asarray(self.imgs[idcs], np.float32) * self._scale
+        if self._native():
+            imgs = native.gather_u8_f32(self.imgs, idcs, self._scale)
+        else:
+            imgs = np.asarray(self.imgs[idcs], np.float32) * self._scale
         return imgs, np.asarray(self.labels[idcs])
 
     # binary datasets (values in {0, 1}) additionally support the bitpacked
@@ -219,14 +232,20 @@ class BaseDataset(abc.ABC):
         if self.is_binary:
             return self.get_batch_bits(idcs)
         mul = int(round(255 * self._scale))
-        out = (np.asarray(self.imgs[idcs]) * mul).astype(np.uint8)
+        if self._native():
+            out = native.gather_u8_mul(self.imgs, idcs, mul)
+        else:
+            out = (np.asarray(self.imgs[idcs]) * mul).astype(np.uint8)
         return out, np.asarray(self.labels[idcs])
 
     def get_batch_bits(self, idcs):
         """Binary-dataset wire format: 1 bit per pixel, (B, n_pixels/8)
         uint8 (np.packbits big-endian bit order)."""
         idcs = np.asarray(idcs)
-        rows = np.asarray(self.imgs[idcs], np.uint8)
+        if self._native():
+            rows = native.gather_u8(self.imgs, idcs)
+        else:
+            rows = np.asarray(self.imgs[idcs], np.uint8)
         packed = np.packbits(rows.reshape(len(idcs), -1), axis=1)
         return packed, np.asarray(self.labels[idcs])
 

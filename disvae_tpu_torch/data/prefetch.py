@@ -74,9 +74,10 @@ class DevicePrefetcher:
                         if global_sizes is not None:  # the rank's share
                             true_n = global_sizes[bi]
                         else:  # the global batch
-                            imgs, true_n = pad_to_multiple(imgs, mesh.size)
+                            imgs, true_n = pad_to_multiple(
+                                imgs, mesh.data_size)
                             imgs = shard_batch(imgs, mesh)
-                        if imgs.shape[0] * mesh.size != true_n:
+                        if imgs.shape[0] * mesh.data_size != true_n:
                             n_valid = true_n
                     batch = torch.from_numpy(np.ascontiguousarray(imgs))
                     if pin:

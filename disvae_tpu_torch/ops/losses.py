@@ -119,7 +119,8 @@ def reconstruction_loss(data, recon_data, distribution="bernoulli",
     divided by the global count.
     """
     b = recon_data.shape[0]
-    row0, total = (0, b) if mesh is None else (mesh.rank * b, mesh.size * b)
+    row0, total = ((0, b) if mesh is None
+                   else (mesh.data_rank * b, mesh.data_size * b))
     n = total if n_valid is None else int(n_valid)
     k = min(max(n - row0, 0), b)  # this rank's valid rows are a prefix
     loss = _reconstruction_sum(data[:k], recon_data[:k], distribution)
@@ -337,10 +338,14 @@ def factor_surrogate(loss_cfg, model, disc, data, step, eps1, eps2, perm,
     block after them, either may be empty), so the halves may straddle
     ranks. The reconstruction sum is all-reduced; mu, logvar and z of
     every local row are gathered, and the KL, the permutation and both
-    discriminator terms run on the global halves on every rank alike.
+    discriminator terms run on the global halves on every rank alike. A
+    tensor-parallel `disc` (parallel/mesh.py ColumnParallelLinear) runs
+    its three forwards through its shards, the detached one included, so
+    the latent's gradient from each is summed over the model group.
     Returns (surrogate, metrics)."""
     b = data.shape[0]
-    row0, total = (0, b) if mesh is None else (mesh.rank * b, mesh.size * b)
+    row0, total = ((0, b) if mesh is None
+                   else (mesh.data_rank * b, mesh.data_size * b))
     half = (total if n_valid is None else int(n_valid)) // 2
     # local rows [0, a) are data1 rows row0 + i, rows [a, c) data2 rows
     # row0 + i - half; rows from c on are dropped or padding

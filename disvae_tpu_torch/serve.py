@@ -15,8 +15,13 @@ programs at a fixed batch, `encoder.pt2` and `decoder.pt2` next to the
 checkpoint. They hold the weights and run without this package's model
 code: `load_artifact(path)(x)`.
 
+Both entry points run on the GPU, as the JAX ones run on the default
+accelerator: without a `device` they take CUDA, and raise when no GPU is
+visible. The CPU serves only a caller who asks for it (`device="cpu"`,
+`--no-cuda`).
+
 Usage:
-    sm = ServingModel.from_dir("results/btcvae_dsprites", device="cuda")
+    sm = ServingModel.from_dir("results/btcvae_dsprites")
     mu, logvar = sm.encode(images)
     imgs = sm.decode(mu)
     export_artifacts("results/btcvae_dsprites", batch_size=64)
@@ -44,6 +49,10 @@ class ServingModel:
 
     @classmethod
     def from_dir(cls, directory, device=None):
+        """The bundle of a results directory on `device`: CUDA when None,
+        raising when no GPU is visible."""
+        if device is None:
+            device = get_device(False)
         return cls(load_model(directory, device=device))
 
     def _in(self, array):
@@ -93,9 +102,11 @@ class _Decode(_Encode):
 def export_artifacts(directory, batch_size=64, out_dir=None, device=None):
     """Export the trained encoder ((B, H, W, C) -> (mu, logvar)) and decoder
     ((B, latent_dim) -> (B, H, W, C)) of a results directory at batch
-    `batch_size` on `device` (CPU by default), traced under the `highest`
-    precision policy (float32, no autocast), as `encoder.pt2` and
-    `decoder.pt2`. Returns their paths."""
+    `batch_size` on `device` (CUDA when None, raising when no GPU is
+    visible), traced under the `highest` precision policy (float32, no
+    autocast), as `encoder.pt2` and `decoder.pt2`. Returns their paths."""
+    if device is None:
+        device = get_device(False)
     model = load_model(directory, device=device)
     device = next(model.parameters()).device
     out_dir = out_dir or directory

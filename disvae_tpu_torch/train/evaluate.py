@@ -30,8 +30,10 @@ upload is worth reading. `fast_entropies` takes the bf16 estimator
 `ops.log_qz.log_qz_fast` instead of `log_qz` (`--fast-metrics`).
 
 Under a data-parallel mesh (`mesh`, disvae_tpu evaluate.py:130-186) the
-metrics encode is split: each rank encodes its contiguous N/W rows and
-the (N, D) mu and logvar are all-gathered. Each entropy sweep's samples
+metrics encode is split over the data axis, as JAX's `batch_sharding`
+(P("data")) splits it: each data rank encodes its contiguous N/W rows
+(the ranks of one model group the same rows) and the (N, D) mu and logvar
+are all-gathered. Each entropy sweep's samples
 are split too: every rank draws the same sample indices in the JAX
 evaluator's order, evaluates its S/W of them against all M mixture
 components, and one all-reduce per sweep sums the float64 (L, D)
@@ -46,14 +48,13 @@ from timeit import default_timer
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from disvae_tpu_torch.data.resident import ResidentData, wire_shape
 from disvae_tpu_torch.models.discriminator import Discriminator
 from disvae_tpu_torch.ops.log_qz import log_qz, log_qz_fast
 from disvae_tpu_torch.ops.losses import coef_vector
 from disvae_tpu_torch.parallel.distributed import is_writer
-from disvae_tpu_torch.parallel.mesh import gather_rows
+from disvae_tpu_torch.parallel.mesh import all_reduce_sum, gather_rows
 from disvae_tpu_torch.train.steps import _decompress_batch, make_eval_step
 from disvae_tpu_torch.utils.modelIO import save_metadata
 
@@ -299,8 +300,8 @@ class Evaluator:
                 raise ValueError("the split metrics encode reads the rows "
                                  "in dataset order: pass an unshuffled "
                                  "loader")
-            share = -(-n // self.mesh.size)
-            lo = min(n, self.mesh.rank * share)
+            share = -(-n // self.mesh.data_size)
+            lo = min(n, self.mesh.data_rank * share)
             hi = min(n, lo + share)
         if self._use_resident(dataloader):
             wire = self._resident.wire
@@ -397,8 +398,8 @@ class Evaluator:
         log_M = math.log(M)
         lo, hi = 0, S
         if self.mesh is not None:
-            lo = S * self.mesh.rank // self.mesh.size
-            hi = S * (self.mesh.rank + 1) // self.mesh.size
+            lo = S * self.mesh.data_rank // self.mesh.data_size
+            hi = S * (self.mesh.data_rank + 1) // self.mesh.data_size
         H = np.zeros(values.shape[:2], np.float64)
         for s0 in range(lo, hi, _SAMPLE_CHUNK):
             v = values[:, :, s0:min(s0 + _SAMPLE_CHUNK, hi)].contiguous()
@@ -406,7 +407,6 @@ class Evaluator:
                 v, mu, logvar)  # (L, D, s_chunk)
             H += (log_M - lq.double()).sum(dim=2).cpu().numpy()
         if self.mesh is not None:
-            total = torch.from_numpy(H).to(self.device)
-            dist.all_reduce(total)
-            H = total.cpu().numpy()
+            H = all_reduce_sum(torch.from_numpy(H).to(self.device),
+                               self.mesh).cpu().numpy()
         return H / S

@@ -5,6 +5,12 @@ FactorVAE discriminator and its own Adam, the `n_train_steps` counter —
 plus the generator that draws the training noise and the loss's
 coefficient vector, in one object. `state_dict()` / `load_state_dict()`
 carry everything a bit-exact resume needs.
+
+Under tensor parallelism (parallel/mesh.py `shard_train_state`) the
+discriminator and its Adam hold this rank's shards, while `state_dict()`
+still returns the WHOLE discriminator and its moments, gathered over the
+model group (every rank of it must call it), and `load_state_dict()`
+slices a whole one again: a checkpoint resumes at any model size.
 """
 
 from dataclasses import dataclass
@@ -12,6 +18,8 @@ from dataclasses import dataclass
 import torch
 
 from disvae_tpu_torch.ops.losses import coef_vector
+from disvae_tpu_torch.parallel.mesh import (load_whole_disc_state,
+                                            whole_disc_state)
 
 
 @dataclass
@@ -27,13 +35,19 @@ class TrainState:
     # the loss's sweepable coefficients (ops/losses.py coef_vector) on the
     # device; a pure function of the loss config, so never checkpointed
     coefs: torch.Tensor = None
+    # the mesh whose model group shards `disc` column-parallel, or None
+    # for a replicated discriminator
+    disc_mesh: object = None
 
     def state_dict(self):
         sd = {"model": self.model.state_dict(),
               "optimizer": self.optimizer.state_dict(),
               "generator": self.generator.get_state(),
               "step": self.step}
-        if self.disc is not None:
+        if self.disc_mesh is not None:
+            sd["disc"], sd["disc_optimizer"] = whole_disc_state(
+                self.disc, self.disc_optimizer, self.disc_mesh)
+        elif self.disc is not None:
             sd["disc"] = self.disc.state_dict()
             sd["disc_optimizer"] = self.disc_optimizer.state_dict()
         return sd
@@ -43,7 +57,11 @@ class TrainState:
         self.optimizer.load_state_dict(sd["optimizer"])
         self.generator.set_state(sd["generator"].cpu())
         self.step = int(sd["step"])
-        if self.disc is not None:
+        if self.disc_mesh is not None:
+            load_whole_disc_state(self.disc, self.disc_optimizer,
+                                  self.disc_mesh, sd["disc"],
+                                  sd["disc_optimizer"])
+        elif self.disc is not None:
             self.disc.load_state_dict(sd["disc"])
             self.disc_optimizer.load_state_dict(sd["disc_optimizer"])
 

@@ -73,7 +73,8 @@ def _decompress_batch(batch, img_size=None):
 def _global_rows(batch, n_valid, mesh):
     """(first global row of this rank's share, global valid rows)."""
     b = batch.shape[0]
-    row0, total = (0, b) if mesh is None else (mesh.rank * b, mesh.size * b)
+    row0, total = ((0, b) if mesh is None
+                   else (mesh.data_rank * b, mesh.data_size * b))
     return row0, total if n_valid is None else int(n_valid)
 
 
@@ -126,8 +127,9 @@ def _factor_train_step(loss_cfg, state, batch, noise=None, n_valid=None,
     optimizers step from the pre-step parameters' grads (the reference's
     end-of-iteration optimizer.step() / optimizer_d.step(),
     losses.py:306-308). Under a mesh the VAE's gradients are summed over
-    ranks and the discriminator's, which every rank computes whole,
-    averaged (parallel/mesh.py reduce_gradients)."""
+    the data group and the discriminator's, which every data rank computes
+    whole (or, tensor-parallel, its shard of it), averaged over it
+    (parallel/mesh.py reduce_gradients)."""
     model, disc = state.model, state.disc
     model.train()
     batch = _decompress_batch(batch, model.img_size)
@@ -163,21 +165,23 @@ def _step_fn(loss_cfg):
     return partial(_standard_train_step, loss_cfg)
 
 
-def make_train_step(loss_cfg, mesh=None):
+def make_train_step(loss_cfg, mesh=None, state=None):
     """The train step of `loss_cfg`'s family: (state, batch, noise=None)
     -> metrics; with `mesh`, on this rank's share of each global batch
-    (parallel/mesh.py make_sharded_train_step)."""
-    return make_sharded_train_step(_step_fn(loss_cfg), mesh)
+    (parallel/mesh.py make_sharded_train_step). Given `state` and a model
+    axis larger than 1, the state's discriminator goes tensor-parallel, as
+    in the two functions below."""
+    return make_sharded_train_step(_step_fn(loss_cfg), mesh, state)
 
 
-def make_padded_train_step(loss_cfg, mesh=None):
+def make_padded_train_step(loss_cfg, mesh=None, state=None):
     """The step for a batch padded to the data-axis multiple: (state,
     batch, n_valid, noise=None) -> metrics, with `n_valid` the true
     (global) batch size. For the non-adversarial losses the result equals
     the unpadded step's; FactorVAE's too, since its permutations are drawn
     at the true half (the JAX package's masked draw matches only in
     distribution). Without a mesh `batch` is the whole padded batch."""
-    return make_sharded_padded_train_step(_step_fn(loss_cfg), mesh)
+    return make_sharded_padded_train_step(_step_fn(loss_cfg), mesh, state)
 
 
 def stack_metrics(metrics, key_order):
@@ -186,7 +190,8 @@ def stack_metrics(metrics, key_order):
     return torch.stack([metrics[k] for k in key_order])
 
 
-def make_resident_multi_train_step(loss_cfg, key_order, mesh=None):
+def make_resident_multi_train_step(loss_cfg, key_order, mesh=None,
+                                   state=None):
     """K-step super-step over a device-resident wire-format dataset:
     (state, data, idx) -> (K, n_keys) metrics, idx = (K, B) int64 batch
     indices on the data's device. The JAX package scans the K steps in one
@@ -200,7 +205,7 @@ def make_resident_multi_train_step(loss_cfg, key_order, mesh=None):
             stack_metrics(step_fn(state, data.index_select(0, i), mesh=mesh),
                           key_order)
             for i in idx])
-    return make_sharded_multi_train_step(multi, mesh)
+    return make_sharded_multi_train_step(multi, mesh, state)
 
 
 def make_eval_step(model, loss_cfg, disc=None):

@@ -17,6 +17,9 @@ Data parallelism (disvae_tpu trainer.py, `mesh=`): every rank runs the
 Trainer on its rows of each global batch (parallel/mesh.py), holds the
 same replicated state, and logs the same global metrics; rank 0 alone
 writes the log and the checkpoints, which every rank reads on `--resume`.
+With a model axis larger than 1 the ranks of one model group feed the same
+rows and hold the FactorVAE discriminator in shards; the checkpoint holds
+it whole.
 A global batch that does not divide the data axis (the ragged tail, or
 every batch when the batch size does not divide it) is padded and takes
 the mask-aware padded step.
@@ -152,10 +155,14 @@ class Trainer:
             model, make_optimizer(model.parameters(), lr), generator,
             disc=disc, disc_optimizer=disc_optimizer, loss_cfg=loss_f)
         self.metric_keys = metric_key_order(loss_f.name, model.latent_dim)
-        self._train_step = make_train_step(loss_f, mesh=mesh)
-        self._padded_step = make_padded_train_step(loss_f, mesh=mesh)
+        # with a model axis larger than 1 these calls shard the
+        # discriminator (tensor parallelism) before any checkpoint loads
+        self._train_step = make_train_step(loss_f, mesh=mesh,
+                                           state=self.state)
+        self._padded_step = make_padded_train_step(loss_f, mesh=mesh,
+                                                   state=self.state)
         self._resident_step = make_resident_multi_train_step(
-            loss_f, self.metric_keys, mesh=mesh)
+            loss_f, self.metric_keys, mesh=mesh, state=self.state)
         self._warned_batch_pad = False
         self._resident = None
         self._resident_ds = _NO_DATASET  # identity key of the cached feed
@@ -187,9 +194,12 @@ class Trainer:
     # ------------------------------------------------------------------
 
     def save_checkpoint(self, epoch):
+        """Every rank calls this: a tensor-parallel state gathers the whole
+        discriminator over each model group; rank 0 alone writes."""
+        state = self.state.state_dict()
         if not self._is_writer:
             return
-        payload = {"next_epoch": epoch + 1, "state": self.state.state_dict()}
+        payload = {"next_epoch": epoch + 1, "state": state}
         path = os.path.join(self.save_dir, CKPT_FILE)
         tmp = path + ".tmp"
         torch.save(payload, tmp)
@@ -294,9 +304,10 @@ class Trainer:
                 if self.gif_visualizer is not None:
                     self.gif_visualizer(self.model)
 
-                if epoch % checkpoint_every == 0 and self._is_writer:
-                    save_model(self.model, self.save_dir,
-                               filename="model-{}.pt".format(epoch))
+                if epoch % checkpoint_every == 0:
+                    if self._is_writer:
+                        save_model(self.model, self.save_dir,
+                                   filename="model-{}.pt".format(epoch))
                     self.save_checkpoint(epoch)
 
                 if stop["flag"]:
@@ -381,7 +392,7 @@ class Trainer:
         return self._resident is not None
 
     def _data_axis(self):
-        return 1 if self.mesh is None else self.mesh.size
+        return 1 if self.mesh is None else self.mesh.data_size
 
     def _n_dispatches(self, data_loader):
         """Step calls one epoch makes (disvae_tpu trainer.py
@@ -428,7 +439,7 @@ class Trainer:
         gathered on the device."""
         n_valid = None
         if self.mesh is not None:
-            idx, true_n = pad_to_multiple(idx, self.mesh.size)
+            idx, true_n = pad_to_multiple(idx, self.mesh.data_size)
             if len(idx) != true_n:
                 n_valid = true_n
             idx = shard_batch(idx, self.mesh)
@@ -486,12 +497,12 @@ class Trainer:
                     and getattr(data_loader, "pad_global_to", None) is None:
                 # equal shares of every (padded) global batch, so that
                 # every rank steps on equally shaped batches
-                if self.mesh.size % data_loader.host_slice[1]:
+                if self.mesh.data_size % data_loader.host_slice[1]:
                     raise ValueError(
                         "data axis ({}) must be divisible by the loader's "
-                        "host count ({})".format(self.mesh.size,
+                        "host count ({})".format(self.mesh.data_size,
                                                  data_loader.host_slice[1]))
-                data_loader.pad_global_to = self.mesh.size
+                data_loader.pad_global_to = self.mesh.data_size
         try:
             if raw_before is not None and hasattr(data_loader.dataset,
                                                   "get_batch_raw"):

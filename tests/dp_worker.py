@@ -7,14 +7,21 @@ MASTER_ADDR and MASTER_PORT in the environment:
 
     python tests/dp_worker.py steps <out_dir> [<case.pt>]
     python tests/dp_worker.py evaluate <out_dir>
+    python tests/dp_worker.py tp <out_dir> <model_parallel> [<case.pt>]
 
 `steps`: one data-parallel train step per loss from the seeded state of
 `make_state`, on the full global batch of `step_batch(16)` and on the
 ragged `step_batch(15)` (padded to the data axis), plus, when a case file
 is given (torch.save of {"weights", "batch", "eps"}), one btcvae step from
 those weights on that batch and pinned noise. `evaluate`: the
-split Evaluator on `lattice()` with `eval_model()`. Each rank saves its
-results to `<out_dir>/<job>-<rank>.pt`.
+split Evaluator on `lattice()` with `eval_model()`. `tp`: on a mesh of
+`model_parallel` ranks per model group, one FactorVAE step with the
+discriminator column-parallel (`make_tp_train_step`) on each of the
+`STEP_BATCHES` (and on 255 rows, padded to 256, where the data axis is 2
+or more), plus, given a case file (torch.save of {"weights",
+"disc", "batch", "noise"}), one from those weights on that batch and
+pinned noise; each rank records its place in the layout. Each rank saves
+its results to `<out_dir>/<job>-<rank>.pt`.
 """
 
 import os
@@ -145,15 +152,61 @@ def run_steps(mesh, case_file):
     return out
 
 
+def tp_snapshot(state, metrics):
+    """What a tensor-parallel step left: metrics, the VAE's parameters and
+    gradients, the WHOLE discriminator (gathered over the model group) and
+    this rank's shard gradients."""
+    out = snapshot(state, metrics)
+    out["disc"] = {k: v.clone() for k, v in state.state_dict()["disc"].items()}
+    return out
+
+
+def run_tp(mesh, case_file):
+    from functools import partial
+
+    from disvae_tpu_torch.parallel.mesh import (ColumnParallelLinear,
+                                                make_tp_train_step,
+                                                pad_to_multiple,
+                                                shard_batch)
+    from disvae_tpu_torch.train.steps import _factor_train_step
+    out = {"layout": (mesh.data_rank, mesh.data_size, mesh.model_rank,
+                      mesh.model_size)}
+    # 255 real rows padded to 256 where the data axis is 2 or more
+    for n in STEP_BATCHES + ([255] if mesh.data_size > 1 else []):
+        cfg, state = make_state("factor")
+        step = make_tp_train_step(partial(_factor_train_step, cfg), mesh,
+                                  state)
+        padded, true_n = pad_to_multiple(step_batch(n), mesh.data_size)
+        local = torch.from_numpy(shard_batch(padded, mesh))
+        out["split"] = sorted(name for name, m in state.disc.named_modules()
+                              if isinstance(m, ColumnParallelLinear))
+        n_valid = None if len(padded) == true_n else true_n
+        out[n] = tp_snapshot(state, step(state, local, n_valid=n_valid))
+    if case_file:
+        case = torch.load(case_file)
+        cfg, state = make_state("factor")
+        state.model.load_state_dict(case["weights"])
+        state.disc.load_state_dict(case["disc"])
+        step = make_tp_train_step(partial(_factor_train_step, cfg), mesh,
+                                  state)
+        local = torch.from_numpy(shard_batch(case["batch"].numpy(), mesh))
+        out["pinned"] = tp_snapshot(state, step(state, local, case["noise"]))
+    return out
+
+
 def main(job, out_dir, *extra):
     from disvae_tpu_torch.parallel import distributed
     from disvae_tpu_torch.parallel.mesh import create_mesh
     torch.set_num_threads(1)  # the 1-process reference runs on one too
     distributed.initialize(cuda=False, timeout=timedelta(seconds=60))
-    mesh = create_mesh()
-    if job == "steps":
+    if job == "tp":
+        mesh = create_mesh(model_parallel=int(extra[0]))
+        result = run_tp(mesh, extra[1] if len(extra) > 1 else None)
+    elif job == "steps":
+        mesh = create_mesh()
         result = run_steps(mesh, extra[0] if extra else None)
     else:
+        mesh = create_mesh()
         save_dir = os.path.join(out_dir, "evaluate-{}".format(mesh.rank))
         os.makedirs(save_dir)
         result = evaluate(mesh, save_dir)

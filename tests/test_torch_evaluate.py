@@ -211,13 +211,16 @@ def test_cli_eval_only_matches_jax_cli(tmp_path, monkeypatch):
     ["--is-eval-only", "--fast-metrics", "--model-parallel", "2"],
     ["--is-eval-only", "--model-parallel", "4"]])
 def test_cli_refuses_paths_not_ported(tmp_path, monkeypatch, flags):
-    """`--model-parallel` > 1 is the one path left to port (the gif and
-    `--fast-metrics` run now), refused before any work in training and in
-    evaluation."""
+    """`--model-parallel` > 1 without a process group is refused with JAX's
+    ValueError (one device does not divide the model axis), before any
+    work in training and in evaluation."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(ValueError, match="1 devices not divisible by "
+                       "model_parallel={}".format(flags[-1])):
         port_cli.main(port_cli.parse_arguments(["run", "--no-cuda"]
                                                + flags))
+    assert not os.path.exists(tmp_path / "results")
 
 
 @pytest.mark.parametrize("binary,raw,shuffle", [(False, False, True),

@@ -31,7 +31,8 @@ def test_export_round_trip_equals_eager(tmp_path, img_size, latent_dim):
     save_model(model, str(tmp_path), metadata=dict(
         dataset="mnist", img_size=list(img_size), latent_dim=latent_dim,
         model_type="Burgess"))
-    paths = serve.export_artifacts(str(tmp_path), batch_size=4)
+    paths = serve.export_artifacts(str(tmp_path), batch_size=4,
+                                   device="cpu")
     assert [os.path.basename(p) for p in paths] == ["encoder.pt2",
                                                     "decoder.pt2"]
     assert precision.current() == "highest"
@@ -39,7 +40,7 @@ def test_export_round_trip_equals_eager(tmp_path, img_size, latent_dim):
     c, h, w = img_size
     x = torch.from_numpy(np.random.RandomState(1).rand(4, h, w, c).astype(
         np.float32))
-    sm = serve.ServingModel.from_dir(str(tmp_path))
+    sm = serve.ServingModel.from_dir(str(tmp_path), device="cpu")
     with torch.no_grad():
         mu, logvar = encode(x)
         rec = decode(mu)

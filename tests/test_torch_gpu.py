@@ -555,3 +555,69 @@ def test_padded_step_on_card_with_hook(nccl_mesh, cuda):
         assert float(got[k]) == pytest.approx(float(want[k]), rel=1e-4,
                                               abs=1e-4), k
     assert settled_param_diff(plain, dp) <= 2e-4
+
+
+# ----------------------------------------------------------------------
+# tensor parallelism at model size 1 over NCCL, and the native gather
+# ----------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_tp_step_on_card_at_model_size_1(nccl_mesh, cuda):
+    """`make_tp_train_step` at M = 1 runs every discriminator layer
+    column-parallel over the one-rank model group; under ``highest`` one
+    FactorVAE step from the plain step's state, on the same batch and
+    pinned noise, leaves the parameters and Adam's moments within 1e-6 of
+    their scale (celeba shapes, b64), and the checkpoint's discriminator
+    is the whole one."""
+    from functools import partial
+
+    from dp_cases import celeba_batch, celeba_state, pinned_noise, state_diff
+
+    from disvae_tpu_torch.parallel.mesh import (ColumnParallelLinear,
+                                                make_tp_train_step)
+    from disvae_tpu_torch.train.steps import (_factor_train_step,
+                                              make_train_step)
+    batch = celeba_batch(64, cuda)
+    cfg, plain = celeba_state("factor", cuda)
+    _, tp = celeba_state("factor", cuda)
+    noise = pinned_noise(cfg, 64, cuda)
+    want = make_train_step(cfg)(plain, batch, noise)
+    step = make_tp_train_step(partial(_factor_train_step, cfg), nccl_mesh, tp)
+    got = step(tp, batch, noise)
+    torch.cuda.synchronize()
+    assert all(isinstance(getattr(tp.disc, "lin{}".format(i)),
+                          ColumnParallelLinear) for i in range(1, 7))
+    for k in want:
+        assert float(got[k]) == pytest.approx(float(want[k]), rel=1e-6,
+                                              abs=1e-6), k
+    assert state_diff(plain, tp)[0] <= 1e-6
+    whole, ref = tp.state_dict()["disc"], plain.state_dict()["disc"]
+    assert {k: v.shape for k, v in whole.items()} == \
+        {k: v.shape for k, v in ref.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("binary", [False, True], ids=["bytes", "bits"])
+def test_native_gather_feeds_the_card(cuda, binary):
+    """A batch gathered by the native gather (one call), copied to the
+    card and decompressed there, equals numpy's float batch bit for
+    bit."""
+    from disvae_tpu_torch import native
+    from disvae_tpu_torch.data.datasets import ArrayDataset
+    from disvae_tpu_torch.train.steps import _decompress_batch
+    rng = np.random.RandomState(0)
+    c = 1 if binary else 3
+    imgs = rng.randint(0, 2 if binary else 256, (300, 64, 64, c)).astype(
+        np.uint8)
+    ds = ArrayDataset(imgs)
+    if binary:
+        ds.is_binary, ds._scale = True, 1.0
+    idcs = rng.randint(0, 300, 256)
+    fn = native.gather_u8 if binary else native.gather_u8_mul
+    before = fn.calls
+    wire, _ = ds.get_batch_raw(idcs)
+    assert fn.calls == before + 1
+    got = _decompress_batch(torch.from_numpy(wire).to(cuda), (c, 64, 64))
+    want = np.asarray(imgs[idcs], np.float32) * ds._scale
+    assert torch.equal(got.cpu(), torch.from_numpy(want))
+    assert np.array_equal(ds.get_batch(idcs)[0], want)

@@ -425,8 +425,14 @@ def group():
 
 
 def test_mesh_needs_a_group_and_one_model_rank(group):
+    """The layout at world size 1; a model axis that does not divide the
+    world raises JAX's ValueError (disvae_tpu/parallel/mesh.py:40-42)."""
     assert group.shape == {"data": 1, "model": 1} and group.rank == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert (group.data_rank, group.data_size, group.model_rank,
+            group.model_size) == (0, 1, 0, 1)
+    assert group.data_group is None and group.model_group is not None
+    with pytest.raises(ValueError,
+                       match="1 devices not divisible by model_parallel=2"):
         create_mesh(model_parallel=2)
     x = torch.randn(3, 4, requires_grad=True)
     y = gather_rows(x, group)
@@ -435,13 +441,20 @@ def test_mesh_needs_a_group_and_one_model_rank(group):
     assert torch.equal(x.grad, torch.arange(4.0).expand(3, 4))
 
 
-def test_no_group_no_mesh(monkeypatch):
+def test_no_group_no_mesh(monkeypatch, tmp_path):
+    monkeypatch.chdir(tmp_path)
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     assert not dist.is_initialized()
     assert distributed.initialize(cuda=False) is False
     assert distributed.is_writer()
     with pytest.raises(RuntimeError, match="process group"):
         create_mesh()
+    # one device does not divide a model axis of 2, as in the JAX CLI
+    with pytest.raises(ValueError, match="not divisible by model_parallel"):
+        create_mesh(model_parallel=2)
+    with pytest.raises(ValueError, match="not divisible by model_parallel"):
+        cli.main(cli.parse_arguments(["run", "--no-cuda",
+                                      "--model-parallel", "2"]))
 
 
 @pytest.mark.parametrize("n", [16, 15], ids=["full", "padded"])
@@ -515,8 +528,11 @@ def test_split_evaluator_at_world_size_1_is_the_evaluator(tmp_path, group):
 
 
 def test_cli_refuses_what_the_port_cannot_run(group, monkeypatch, tmp_path):
+    """--model-parallel must divide the world size (one rank here), and
+    --no-mesh is refused on a multi-rank run."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError,
+                       match="1 devices not divisible by model_parallel=2"):
         cli.main(cli.parse_arguments(["run", "--no-cuda",
                                       "--model-parallel", "2"]))
     monkeypatch.setattr(dist, "get_world_size", lambda *a: 2)
