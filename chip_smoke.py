@@ -5,9 +5,11 @@ GPU.
     python3 chip_smoke.py
     python3 chip_smoke.py --convt-only [--package-root DIR]
     python3 chip_smoke.py --logqz-only [--package-root DIR]
+    python3 chip_smoke.py --graph-only
 
 `--convt-only` runs phases 1, 2 and 4 only, `--logqz-only` phases 1-3 for
-K3 only; `--package-root` imports disvae_tpu_torch from another checkout
+K3 only, `--graph-only` phase 16 on seeded random images (after building
+K1/K2); `--package-root` imports disvae_tpu_torch from another checkout
 (e.g. a `git archive` of the parent commit unpacked under build/), to time
 its kernels in the same call. Another checkout's K3 is not held to the
 recompute counter (a K3 without that kernel has none).
@@ -65,15 +67,20 @@ Phases (any failure raises and exits non-zero; there is no CPU carry-on):
 7. Training path: a 25,637-image celeba subset (tools/fabricate_celeba.py;
    100 batches of 256 and a tail of 37), the K1/K2 hook set, then the CLI
    with btcvae_celeba's settings at b256 under `--precision default` for 2
-   epochs. Checks one K1 and one K2 launch per train step, the log, the
-   checkpoints, a falling epoch loss and finite test losses; prints each
-   epoch's images/sec.
+   epochs, under torch.profiler. Checks one K1 and one K2 execution per
+   train step among the profiler's device events (eager and replayed
+   steps alike), that the wrappers launched each kernel (in the eager
+   steps and the capture: a replay calls no wrapper), that the resident
+   super-steps replayed as a CUDA graph, the log, the checkpoints, a
+   falling epoch loss and finite test losses; prints each epoch's
+   images/sec (profiled).
 8. A/B of the steady-state b256 train step, with the hook and without,
    turns (without, with, with, without), then one torch.profiler window
    each: device time by kernel (the twelve largest, and K1/K2 wherever
    they rank) and the device's idle share.
-9. FactorVAE through the CLI (b128 doubled to b256, 2 epochs); K1/K2 run
-   on the 128-image half batch. Once with `--no-viz-gif` and once with the
+9. FactorVAE through the CLI (b128 doubled to b256, 2 epochs), its
+   super-steps replayed as a CUDA graph; K1/K2 run on the 128-image half
+   batch. Once with `--no-viz-gif` and once with the
    per-epoch training gif: training.gif has one 662 x 662 RGB frame per
    epoch, its frames decode to the rendered ones within the palette bound,
    and each frame's milliseconds are printed.
@@ -130,14 +137,32 @@ Phases (any failure raises and exits non-zero; there is no CPU carry-on):
    numpy gathers, in turns with the native gather (MIG and AAM bitwise
    phase 5's; encode seconds of each). Every line of phases 14 and 15
    carries the card's name and power limit.
+16. The resident super-step as one CUDA graph (train/steps.py
+   GraphedSuperStep), after phase 8 (this checkout's package only): each
+   of the five losses at b64 dsprites shapes (the fabricated lattice's
+   bits) under `highest`, and btcvae under `default` with the K1/K2 hook,
+   four super-steps of K = 4 (one eager, one captured, three replays)
+   against four eager ones from the same seed: metrics, parameters,
+   gradients, Adam's state, the generator and both step counters bit for
+   bit, and 24 K1 and K2 wrapper launches each with the hook (16 eager
+   steps, 4 eager and 4 captured ones). Then the b64 dsprites btcvae step
+   (`highest`, the evidence run's) and the b256 celeba btcvae step
+   (`default`, hook) eager against graphed (K = 16, the Trainer's), host
+   ms per step over 20 super-steps in turns (eager, graph, graph, eager),
+   and a torch.profiler window of two super-steps each for the device's
+   busy share and the K1/K2 kernels the replays ran; a graphed Trainer,
+   1 epoch + resume + 1, against 2 straight, bit for bit. Every line
+   carries the card's name and power limit.
 
 Its last two lines are JSON: the kernels' record (per kernel `ms`, the
 L2-cold time, `warm_ms`, `plain_ms`, `bound_ms`/`bound_us`, `bound_by`,
 `library_ms`, the L2-cold time of cuDNN's call for the same gradient or
-null; for K1/K2 `cudnn_dw_ms`/`cudnn_dx_ms`; for K2 `flat_us`, its floor,
-and `b128_ms`/`b128_warm_ms`; for K3 `shapes`, the
-per-shape times, `eval_sum_ms`/`eval_sum_warm_ms` and `entropy_seconds`),
-then
+null; `launches`, the wrapper's count in the main path's run; for K1/K2
+`graph_replays` and `device_launches`, phase 7's replays and the
+profiler's count of the kernel's executions, and
+`cudnn_dw_ms`/`cudnn_dx_ms`; for K2 `flat_us`, its floor, and
+`b128_ms`/`b128_warm_ms`; for K3 `shapes`, the per-shape times,
+`eval_sum_ms`/`eval_sum_warm_ms` and `entropy_seconds`), then
 {"ok": true, "device": {...}}. Scratch data lives under build/ and is
 removed at the end.
 """
@@ -148,6 +173,7 @@ import importlib.util
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import struct
@@ -202,6 +228,9 @@ L2_FLUSH_BYTES = 256 << 20  # written, read between L2-cold runs: 5 L2s
 # step under `highest` (max |d| / max |ref| over parameters, Adam moments
 # and metrics), and |dMIG|, |dAAM| of the split eval against the plain one
 DP_PARITY, DP_METRICS = 1e-6, 1e-6
+# the graph phase's super-steps: the Trainer's steps_per_dispatch, and
+# how many super-steps each timed turn runs
+GRAPH_K, GRAPH_SUPER = 16, 20
 
 
 def log(*args):
@@ -1088,6 +1117,16 @@ def _cli_run(cli, scratch, argv):
         os.chdir(cwd)
 
 
+def _replays(trainer, what):
+    """The CUDA graph replays of a Trainer's resident super-step; raises if
+    it never captured or replayed one."""
+    step = trainer._resident_step
+    if not getattr(step, "captured", False) or step.replays < 1:
+        raise AssertionError("{}: the resident super-steps did not replay "
+                             "as a CUDA graph".format(what))
+    return step.replays
+
+
 def _read_log(exp_dir):
     with open(os.path.join(exp_dir, "train_losses.log")) as f:
         lines = f.read().strip().split("\n")
@@ -1096,9 +1135,24 @@ def _read_log(exp_dir):
     return [line.split(",") for line in lines[1:]]
 
 
+def _convt_device_launches(prof):
+    """(K1, K2) kernel executions on the device in a torch.profiler window:
+    K1's band kernel (one per convt3_dw call, its merge kernel beside it)
+    and K2's kernel, whether launched eagerly or replayed in a graph."""
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    # demangled names: "void convt3_dw_band_kernel<...>(...)"
+    return (sum("convt3_dw_band" in n for n in names),
+            sum("convt3_dx" in n for n in names))
+
+
 def phase_train(C, scratch):
     """btcvae_celeba's settings through the CLI at b256 under `default`,
-    with the K1/K2 hook set. Returns K1's and K2's launch counts."""
+    with the K1/K2 hook set, under torch.profiler. Returns K1's and K2's
+    launch counts (their wrappers' counts: the eager steps and the
+    captured ones), the graph's replays, the kernels' executions on the
+    device (the profiler's: every step, replayed or not) and the epoch
+    stats."""
     from disvae_tpu_torch import cli
     from disvae_tpu_torch.models import burgess
     from disvae_tpu_torch.ops.precision import configure
@@ -1115,13 +1169,17 @@ def phase_train(C, scratch):
 
     name = "chip_smoke_btcvae_celeba"
     burgess.set_final_convt_impl(C.conv_transpose2d_pl)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
     try:
         C.convt3_dw.launches = C.convt3_dx.launches = 0
-        trainer, _, seconds = _cli_run(cli, scratch, [
-            name, "-d", "celeba", "-l", "btcvae", "--btcvae-B", "6.4",
-            "--lr", "5e-4", "-b", "256", "-e", "2", "--checkpoint-every",
-            "1", "--precision", "default", "--no-viz-gif",
-            "--no-progress-bar", "-s", str(SEED)])
+        with torch.profiler.profile(activities=acts) as prof:
+            trainer, _, seconds = _cli_run(cli, scratch, [
+                name, "-d", "celeba", "-l", "btcvae", "--btcvae-B", "6.4",
+                "--lr", "5e-4", "-b", "256", "-e", "2",
+                "--checkpoint-every", "1", "--precision", "default",
+                "--no-viz-gif", "--no-progress-bar", "-s", str(SEED)])
+            torch.cuda.synchronize()
         launches = (C.convt3_dw.launches, C.convt3_dx.launches)
     finally:
         burgess.set_final_convt_impl(burgess.conv_transpose2d)
@@ -1130,16 +1188,22 @@ def phase_train(C, scratch):
     exp_dir = os.path.join(scratch, cli.RES_DIR, name)
     steps = trainer.state.step
     stats = trainer.epoch_stats
-    log("train CLI (btcvae, celeba {:,} images, b256, default, K1/K2 hook):"
-        " {:.1f} s in all, {} steps, K1 launches {}, K2 launches {}".format(
-            N_CELEBA, seconds, steps, *launches))
+    replays = _replays(trainer, name)
+    device = _convt_device_launches(prof)
+    log("train CLI (btcvae, celeba {:,} images, b256, default, K1/K2 hook,"
+        " under torch.profiler): {:.1f} s in all, {} steps, K1 launches {},"
+        " K2 launches {} (their wrappers' counts), {} CUDA graph replays of "
+        "{} steps, K1/K2 executions on the device {} / {} (profiler)".format(
+            N_CELEBA, seconds, steps, *launches, replays,
+            trainer.steps_per_dispatch, *device))
     for e in stats:
         log("  epoch {}: mean loss {:.4f}, {:.0f} images/sec".format(
             e["epoch"] + 1, e["loss"], e["images_per_sec"]))
-    if steps != 2 * -(-N_CELEBA // 256) or launches != (steps, steps):
-        raise AssertionError("expected one K1 and one K2 launch per train "
-                             "step: {} steps, launches {}".format(steps,
-                                                                 launches))
+    if steps != 2 * -(-N_CELEBA // 256) or device != (steps, steps) \
+            or min(launches) < 1:
+        raise AssertionError("expected one K1 and one K2 execution per "
+                             "train step: {} steps, executions {}, wrapper "
+                             "launches {}".format(steps, device, launches))
     rows = _read_log(exp_dir)
     if sorted({r[0] for r in rows}) != ["0", "1"] \
             or not all(math.isfinite(float(r[2])) for r in rows):
@@ -1155,7 +1219,7 @@ def phase_train(C, scratch):
         "{tc_loss}".format(**losses))
     if not all(math.isfinite(v) for v in losses.values()):
         raise AssertionError("non-finite test losses")
-    return launches, stats
+    return launches, replays, device, stats
 
 
 def _device_profile(prof):
@@ -1264,6 +1328,202 @@ def phase_ab(C, datasets):
         configure("highest")
 
 
+def _graph_cases():
+    """The graph-against-eager cases the GPU tests use too
+    (tests/graph_cases.py)."""
+    tests = os.path.join(REPO, "tests")
+    if tests not in sys.path:
+        sys.path.append(tests)
+    import graph_cases
+    return graph_cases
+
+
+def _graph_step_times(C, say, what, loss, wire, img_size, batch, precision,
+                      hook):
+    """The resident super-step of GRAPH_K steps, eager against graphed, from
+    one seed each: host wall per step in turns (eager, graph, graph,
+    eager; GRAPH_SUPER super-steps each), then a torch.profiler window of
+    two super-steps each for the device's busy share, and the K1/K2
+    kernels the window's device events show."""
+    from disvae_tpu_torch.models import burgess
+    from disvae_tpu_torch.ops.precision import configure
+    G = _graph_cases()
+    dev = wire.device
+    idx = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, len(wire), (GRAPH_SUPER * GRAPH_K, batch))).to(dev)
+    configure(precision)
+    burgess.set_final_convt_impl(C.conv_transpose2d_pl if hook
+                                 else burgess.conv_transpose2d)
+    try:
+        runs = {}
+        for graph in (False, True):
+            cfg, state = G.train_state(loss, dev, img_size)
+            runs[graph] = (G.super_step(cfg, state, GRAPH_K, graph), state)
+
+        def run(graph, n):
+            step, state = runs[graph]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(n):
+                j = i % GRAPH_SUPER * GRAPH_K
+                step(state, wire, idx[j:j + GRAPH_K])
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / (n * GRAPH_K) * 1e3
+
+        run(False, 2)
+        run(True, 3)  # eager warm-up, capture, replays
+        times = {False: [], True: []}
+        for graph in (False, True, True, False):
+            times[graph].append(run(graph, GRAPH_SUPER))
+        busy = {}
+        for graph in (False, True):
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                run(graph, 2)
+                wall = time.perf_counter() - t0
+            seconds, top = _device_profile(prof)
+            convt = {re.search(r"convt3_\w+", k).group(0): n
+                     for k, _, n in top if "convt3_" in k}
+            busy[graph] = (seconds, wall, convt)
+            if graph:
+                for k, ms, n in top[:8]:
+                    say("  {}, graphed, largest device times: {:8.3f} ms "
+                        "{:5d} calls  {}", what, ms, n, k[:100])
+    finally:
+        burgess.set_final_convt_impl(burgess.conv_transpose2d)
+        configure("highest")
+    if not runs[True][0].captured:
+        raise AssertionError("the timed super-step was never captured")
+
+    def share(graph):
+        seconds, wall, convt = busy[graph]
+        if seconds == 0:
+            return "device busy not measured (no device events)"
+        return "device busy {:.3f} of {:.3f} ms a step ({:.1%}){}".format(
+            seconds * 1e3 / (2 * GRAPH_K), wall * 1e3 / (2 * GRAPH_K),
+            seconds / wall, "; K1/K2 kernels in the window: {}".format(
+                json.dumps(convt)) if hook else "")
+    say("{}: host ms per step, {} super-steps of {} in turns: eager {}, "
+        "graph {}; profiled, eager: {}; graph: {}", what, GRAPH_SUPER,
+        GRAPH_K, " / ".join("{:.4f}".format(t) for t in times[False]),
+        " / ".join("{:.4f}".format(t) for t in times[True]), share(False),
+        share(True))
+    if hook and busy[True][0] and min(busy[True][2].values() or [0]) \
+            < 2 * GRAPH_K:
+        raise AssertionError("the profiled replays show no K1/K2 launch per "
+                             "step: {}".format(busy[True][2]))
+    return {"eager_ms": times[False], "graph_ms": times[True],
+            "eager_busy": busy[False][0] / busy[False][1],
+            "graph_busy": busy[True][0] / busy[True][1]}
+
+
+def _graph_resume(say, wire_ds, scratch):
+    """btcvae through the Trainer with the graph on, K = 4, 16 b64 batches
+    an epoch: 1 epoch + resume + 1 epoch against 2 straight, bit for bit
+    (state, log)."""
+    from disvae_tpu_torch.data.datasets import DataLoader
+    from disvae_tpu_torch.models.vae import init_specific_model
+    from disvae_tpu_torch.train.trainer import Trainer
+    G = _graph_cases()
+    lr, cfg = G.loss_config("btcvae", n_data=len(wire_ds))
+
+    def trainer(save_dir, resume=False):
+        model = init_specific_model(
+            "Burgess", (1, 64, 64), 10,
+            generator=torch.Generator().manual_seed(SEED),
+            device=torch.device("cuda"))
+        return Trainer(model, cfg, lr=lr, seed=SEED, is_progress_bar=False,
+                       save_dir=save_dir, steps_per_dispatch=4,
+                       resume=resume)
+
+    def loader():
+        return DataLoader(wire_ds, batch_size=64, shuffle=True, seed=SEED)
+
+    dirs = [os.path.join(scratch, "graph_resume", k)
+            for k in ("straight", "resumed")]
+    straight = trainer(dirs[0])
+    straight(loader(), epochs=2, checkpoint_every=1)
+    trainer(dirs[1])(loader(), epochs=1, checkpoint_every=1)
+    resumed = trainer(dirs[1], resume=True)
+    resumed(loader(), epochs=2, checkpoint_every=1)
+    torch.cuda.synchronize()
+    diff = G.differences(straight.state, resumed.state)
+    logs = [open(os.path.join(d, "train_losses.log")).read() for d in dirs]
+    replays = (straight._resident_step.replays,
+               resumed._resident_step.replays)
+    say("graph resume: 1 epoch + resume + 1 against 2 straight ({} steps, "
+        "replays {}): differences {}, logs equal {}", straight.state.step,
+        replays, diff, logs[0] == logs[1])
+    if diff or logs[0] != logs[1] or replays != (7, 3):
+        raise AssertionError("graphed resume differs: {}".format(diff))
+
+
+def phase_graph(C, smi, scratch, dsprites, celeba):
+    """The resident super-step as one CUDA graph: each loss at b64
+    dsprites shapes under `highest`, and btcvae under `default` with the
+    K1/K2 hook, graphed against eager bit for bit (K = 4, 1 eager and 3
+    replayed super-steps); the b64 dsprites btcvae step (`highest`, the
+    evidence run's) and the b256 celeba btcvae step (`default`, hook)
+    eager against graphed in turns; a graphed Trainer resumed.
+    `dsprites` and `celeba` are datasets whose wire formats are uploaded
+    to the card."""
+    from disvae_tpu_torch.data.resident import ResidentData
+    from disvae_tpu_torch.models import burgess
+    from disvae_tpu_torch.ops.precision import configure
+    G = _graph_cases()
+    dev = torch.device("cuda")
+
+    def say(fmt, *args):
+        log(("[{}] " + fmt).format(smi, *args))
+
+    t0 = time.perf_counter()
+    bits = ResidentData(dsprites, dev).wire
+    rgb = ResidentData(celeba, dev).wire
+    idx = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, len(bits), (16, 64))).to(dev)
+    for loss in G.LOSSES + ["btcvae+hook"]:
+        hook = loss.endswith("+hook")
+        if hook:
+            configure("default")
+            burgess.set_final_convt_impl(C.conv_transpose2d_pl)
+        before = (C.convt3_dw.launches, C.convt3_dx.launches)
+        try:
+            m_eager, m_graph, s_eager, s_graph, step = G.graph_against_eager(
+                loss.split("+")[0], bits, idx, 4)
+        finally:
+            burgess.set_final_convt_impl(burgess.conv_transpose2d)
+            configure("highest")
+        launches = (C.convt3_dw.launches - before[0],
+                    C.convt3_dx.launches - before[1])
+        diff = G.differences(s_eager, s_graph)
+        same = torch.equal(m_eager, m_graph)
+        say("graph against eager, {} ({}), b64 dsprites, 4 super-steps of "
+            "4 (replays {}): metrics bitwise {}, state differences {}{}",
+            loss, "default" if hook else "highest", step.replays, same,
+            diff, ", K1/K2 launches {}".format(launches) if hook else "")
+        # wrapper launches: 16 eager steps, 4 eager and 4 captured ones
+        if not step.captured or step.replays != 3 or not same or diff \
+                or launches != ((24, 24) if hook else (0, 0)):
+            raise AssertionError("the graphed super-step of {} is not the "
+                                 "eager one".format(loss))
+    times = {
+        "b64 dsprites": _graph_step_times(
+            C, say, "b64 dsprites btcvae (highest)", "btcvae", bits,
+            (1, 64, 64), 64, "highest", False),
+        "b256 celeba": _graph_step_times(
+            C, say, "b256 celeba btcvae (default, K1/K2 hook)", "btcvae",
+            rgb, (3, 64, 64), 256, "default", True)}
+    from disvae_tpu_torch.data.datasets import ArrayDataset
+    sub = ArrayDataset(np.asarray(dsprites.imgs[:16 * 64]))
+    sub.is_binary, sub._scale = True, 1.0
+    _graph_resume(say, sub, scratch)
+    say("graph phase: {:.1f} s", time.perf_counter() - t0)
+    return times
+
+
 def phase_factor(C, scratch):
     """FactorVAE through the CLI on the same subset: b128 and 1 epoch,
     doubled by the CLI to b256 and 2 epochs; K1/K2 on the half batch. Run
@@ -1305,9 +1565,11 @@ def phase_factor(C, scratch):
             configure("highest")
         exp_dir = os.path.join(scratch, cli.RES_DIR, name)
         log("factor CLI (celeba, b128 -> b256, 2 epochs, {}): {:.1f} s, {} "
-            "steps, K1 launches {}, K2 launches {}; epochs {}".format(
+            "steps, K1 launches {}, K2 launches {}, {} CUDA graph replays; "
+            "epochs {}".format(
                 "with the training gif" if gif else "--no-viz-gif", seconds,
-                trainer.state.step, *launches, ", ".join(
+                trainer.state.step, *launches, _replays(trainer, name),
+                ", ".join(
                     "{:.4f} loss at {:.0f} images/sec".format(
                         e["loss"], e["images_per_sec"])
                     for e in trainer.epoch_stats)))
@@ -2023,6 +2285,9 @@ def main(argv=None):
     parser.add_argument("--logqz-only", action="store_true",
                         help="build, check and time K3 only (phases 1-3 and "
                         "the SASS of its inner loop), then stop")
+    parser.add_argument("--graph-only", action="store_true",
+                        help="build K1/K2 and run the CUDA-graph phase on "
+                        "seeded random images only, then stop")
     parser.add_argument("--package-root", default=REPO,
                         help="import disvae_tpu_torch from this directory "
                         "(another checkout, to time its kernels in the same "
@@ -2051,6 +2316,24 @@ def main(argv=None):
         phase_sass(paths["log_qz"], getattr(K, "SAMPLES_PER_THREAD", None))
         log(json.dumps(phase_kernels(K, strict, clock=True)))
         return 0
+    if args.graph_only:
+        from disvae_tpu_torch.data.datasets import ArrayDataset
+        phase_build({"convt3_bwd": C})
+        rng = np.random.default_rng(SEED)
+        bits = ArrayDataset((rng.random((4096, 64, 64, 1)) < 0.1).astype(
+            np.uint8))
+        bits.is_binary, bits._scale = True, 1.0
+        rgb = ArrayDataset(rng.integers(0, 256, (4096, 64, 64, 3),
+                                        dtype=np.uint8))
+        build_dir = os.path.join(REPO, "build")
+        os.makedirs(build_dir, exist_ok=True)
+        scratch = tempfile.mkdtemp(prefix="chip_smoke_", dir=build_dir)
+        try:
+            log(json.dumps({"graph_times": phase_graph(C, smi, scratch, bits,
+                                                       rgb)}))
+        finally:
+            shutil.rmtree(scratch, ignore_errors=True)
+        return 0
     builds = {"log_qz": K, "convt3_bwd": C, "flat_floor": floor}
     native_build = {}
     if _native_gathers():
@@ -2078,8 +2361,13 @@ def main(argv=None):
                 record["eval_sum_warm_ms"] / 1e3))
         phase_eval_variants(K, scratch, exp_dir, datasets, metrics, timings)
         phase_serving(exp_dir, datasets)
-        (dw_launches, dx_launches), train_stats = phase_train(C, scratch)
+        (dw_launches, dx_launches), replays, device, train_stats = \
+            phase_train(C, scratch)
         phase_ab(C, datasets)
+        if strict:
+            log(json.dumps({"graph_times": phase_graph(
+                C, smi, scratch, datasets.get_dataset("dsprites")(),
+                datasets.get_dataset("celeba")())}))
         phase_factor(C, scratch)
         phase_viz(scratch, [("chip_smoke_btcvae_celeba", "celeba"),
                             (os.path.basename(exp_dir), "dsprites")],
@@ -2090,8 +2378,8 @@ def main(argv=None):
             phase_native(scratch, smi, datasets, (exp_dir, metrics, timings),
                          native_build["seconds"])
         else:
-            log("data-parallel, tensor-parallel and native-gather phases "
-                "skipped: they run this checkout's package only")
+            log("graph, data-parallel, tensor-parallel and native-gather "
+                "phases skipped: they run this checkout's package only")
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
@@ -2106,10 +2394,12 @@ def main(argv=None):
              entropy_seconds=timings["entropy_seconds"], **record),
         dict(name="convt3_dw", route="cuda", source=convt_src,
              replaces="disvae_tpu/ops/pallas_convt_bwd.py:71",
-             launches=dw_launches, **convt["convt3_dw"], **cudnn),
+             launches=dw_launches, graph_replays=replays,
+             device_launches=device[0], **convt["convt3_dw"], **cudnn),
         dict(name="convt3_dx", route="cuda", source=convt_src,
              replaces="disvae_tpu/ops/pallas_convt_bwd.py:108",
-             launches=dx_launches, **convt["convt3_dx"], **cudnn)]}))
+             launches=dx_launches, graph_replays=replays,
+             device_launches=device[1], **convt["convt3_dx"], **cudnn)]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

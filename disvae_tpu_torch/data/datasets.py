@@ -20,6 +20,7 @@ import abc
 import glob
 import gzip
 import hashlib
+import json
 import logging
 import os
 import struct
@@ -385,11 +386,17 @@ class FashionMNIST(MNIST):
     }
 
 
+# Optional file beside a dsprites cache: the JSON list of its factor sizes
+# (shape, scale, orientation, posX, posY) when it holds a reduced lattice.
+LAT_SIZES_FILE = "dsprites_lat_sizes.json"
+
+
 @_register("dsprites")
 class DSprites(BaseDataset):
     """dSprites: 737,280 binary 64x64 sprites on a (3,6,40,32,32) factor
     lattice. Stored values are {0,1} so `_scale` is 1. Labels are the
-    6-vector `latents_values`."""
+    6-vector `latents_values`. A cache with a LAT_SIZES_FILE holds the
+    reduced lattice that file names."""
 
     img_size = (1, 64, 64)
     background_color = COLOUR_BLACK
@@ -430,6 +437,18 @@ class DSprites(BaseDataset):
         imgs = np.load(imgs_cache, mmap_mode="r")
         labels = np.load(lat_cache)
         super().__init__(imgs, labels)
+        sizes_path = os.path.join(root, LAT_SIZES_FILE)
+        if os.path.exists(sizes_path):
+            # a reduced lattice in the same row-major factor order, named
+            # by the cache that holds it
+            with open(sizes_path) as f:
+                sizes = np.asarray(json.load(f), dtype=np.int64)
+            if sizes.shape != (len(self.lat_names),) \
+                    or int(np.prod(sizes)) != len(imgs):
+                raise ValueError(
+                    "{} gives factor sizes {} for {} images".format(
+                        sizes_path, sizes.tolist(), len(imgs)))
+            self.lat_sizes = sizes
 
 
 @_register("celeba")

@@ -2,7 +2,8 @@
 
 Every loss returns ``(loss, metrics_dict)`` with the JAX package's keys.
 Data and reconstructions are NHWC float32 in [0, 1]; `step` is the train
-step counter (incremented before use) that drives annealing. FactorVAE
+step counter (incremented before use) that drives annealing: in training,
+the train state's 0-d device tensor (`linear_annealing`). FactorVAE
 trains two parameter sets on a batch split in half: `factor_surrogate`
 is the one scalar whose backward gives both the reference's updates, and
 `FactorKLoss.eval_losses` its evaluation pieces.
@@ -75,11 +76,17 @@ def coef_vector(loss_cfg, device=None):
 
 
 def linear_annealing(init, fin, step, annealing_steps):
-    """Linear ramp init -> fin over `annealing_steps` steps."""
+    """Linear ramp init -> fin over `annealing_steps` steps, a float32
+    clamp as JAX's traced `jnp.minimum` (disvae_tpu losses.py:92-97).
+
+    `step` is the train state's device counter (a 0-d integer tensor), so
+    a captured step reads the step of each replay; a Python int is taken
+    as one."""
     if annealing_steps == 0:
         return fin
     delta = fin - init
-    return min(init + delta * step / annealing_steps, fin)
+    return torch.clamp(init + delta * torch.as_tensor(step)
+                       / annealing_steps, max=fin)
 
 
 def _masked_mean(x, n_valid):

@@ -38,9 +38,11 @@ def log_importance_weight_matrix(batch_size, dataset_size,
     strat_weight = (N - M) / (N * M)
     W = torch.full((batch_size, batch_size), 1.0 / M, dtype=dtype,
                    device=device)
-    W[:, 0] = 1.0 / N
-    W[:, 1] = strat_weight
-    W[M - 1, 0] = strat_weight
+    # fills on the device (an indexed assignment of a Python number copies
+    # it from the host, which a CUDA graph cannot capture)
+    W[:, 0].fill_(1.0 / N)
+    W[:, 1].fill_(strat_weight)
+    W[M - 1, 0].fill_(strat_weight)
     return torch.log(W)
 
 
@@ -62,8 +64,9 @@ def log_importance_weight_matrix_masked(padded_size, n_valid, dataset_size,
     Trainer never feeds such a tail (Trainer._skip_tiny_tail); library
     callers must do the same.
     """
-    N = torch.tensor(float(dataset_size), dtype=dtype, device=device)
-    M = torch.tensor(float(n_valid), dtype=dtype, device=device) - 1.0
+    # filled on the device: no host-to-device copy inside a step
+    N = torch.full((), float(dataset_size), dtype=dtype, device=device)
+    M = torch.full((), float(n_valid), dtype=dtype, device=device) - 1.0
     strat_weight = (N - M) / (N * M)
     i = torch.arange(padded_size, device=device)[:, None]
     j = torch.arange(padded_size, device=device)[None, :]
@@ -72,5 +75,4 @@ def log_importance_weight_matrix_masked(padded_size, n_valid, dataset_size,
     W = torch.where(j == 0, 1.0 / N, W)
     W = torch.where(j == 1, strat_weight, W)
     W = torch.where((i == n_valid - 2) & (j == 0), strat_weight, W)
-    return torch.where(j < n_valid, torch.log(W),
-                       torch.tensor(-math.inf, dtype=dtype, device=device))
+    return torch.where(j < n_valid, torch.log(W), -math.inf)

@@ -207,6 +207,12 @@ class Evaluator:
                 "Dataset needs to have known true factors of variations to "
                 "compute the metric. This does not seem to be the case for "
                 "{}".format(type(dataloader.dataset).__name__))
+        if len(dataloader.dataset) != int(np.prod(lat_sizes)):
+            raise ValueError(
+                "{} holds {} images, not the {} of its factor lattice {}"
+                .format(type(dataloader.dataset).__name__,
+                        len(dataloader.dataset), int(np.prod(lat_sizes)),
+                        lat_sizes.tolist()))
 
         self.logger.info("Computing the empirical distribution q(z|x).")
         t0 = default_timer()

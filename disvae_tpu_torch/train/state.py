@@ -6,6 +6,13 @@ plus the generator that draws the training noise and the loss's
 coefficient vector, in one object. `state_dict()` / `load_state_dict()`
 carry everything a bit-exact resume needs.
 
+The step is counted twice: `step`, a Python int the host reads (the
+record gate, checkpoints), and `device_step`, a 0-d int64 tensor on the
+model's device that the losses read, as JAX carries `step` in its state.
+A step increments both; a replayed CUDA graph of K steps increments the
+device counter inside the graph and the host adds K (train/steps.py
+`GraphedSuperStep`). They agree after every step and after a load.
+
 Under tensor parallelism (parallel/mesh.py `shard_train_state`) the
 discriminator and its Adam hold this rank's shards, while `state_dict()`
 still returns the WHOLE discriminator and its moments, gathered over the
@@ -30,6 +37,8 @@ class TrainState:
     # lives on the model's device, so a step never waits on the host
     generator: torch.Generator
     step: int = 0  # counted like the reference's n_train_steps
+    # the same count on the model's device (0-d int64), read by the losses
+    device_step: torch.Tensor = None
     disc: torch.nn.Module = None
     disc_optimizer: torch.optim.Optimizer = None
     # the loss's sweepable coefficients (ops/losses.py coef_vector) on the
@@ -40,10 +49,15 @@ class TrainState:
     disc_mesh: object = None
 
     def state_dict(self):
+        device_step = self.device_step.cpu()  # waits for the device
+        if int(device_step) != self.step:
+            raise RuntimeError("the device step counter ({}) disagrees with "
+                               "the host's ({})".format(int(device_step),
+                                                        self.step))
         sd = {"model": self.model.state_dict(),
               "optimizer": self.optimizer.state_dict(),
               "generator": self.generator.get_state(),
-              "step": self.step}
+              "step": self.step, "device_step": device_step}
         if self.disc_mesh is not None:
             sd["disc"], sd["disc_optimizer"] = whole_disc_state(
                 self.disc, self.disc_optimizer, self.disc_mesh)
@@ -57,6 +71,12 @@ class TrainState:
         self.optimizer.load_state_dict(sd["optimizer"])
         self.generator.set_state(sd["generator"].cpu())
         self.step = int(sd["step"])
+        device_step = int(sd.get("device_step", self.step))
+        if device_step != self.step:
+            raise ValueError("checkpoint step counters disagree: device {}, "
+                             "host {}".format(device_step, self.step))
+        # in place: a captured graph keeps reading the same tensor
+        self.device_step.fill_(device_step)
         if self.disc_mesh is not None:
             load_whole_disc_state(self.disc, self.disc_optimizer,
                                   self.disc_mesh, sd["disc"],
@@ -71,4 +91,6 @@ def create_train_state(model, optimizer, generator, disc=None,
     device = next(model.parameters()).device
     coefs = None if loss_cfg is None else coef_vector(loss_cfg, device=device)
     return TrainState(model=model, optimizer=optimizer, generator=generator,
+                      device_step=torch.zeros((), dtype=torch.int64,
+                                              device=device),
                       disc=disc, disc_optimizer=disc_optimizer, coefs=coefs)

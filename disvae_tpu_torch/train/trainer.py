@@ -5,7 +5,10 @@ disvae/training.py:17-196). The reference syncs with the device on every
 iteration (`loss.item()`); here each step leaves one packed metric vector
 on the device, an epoch's vectors are copied to the host once, and with
 the resident feed that copy is read only after the next epoch has been
-dispatched, so the host does not hold the device back.
+dispatched, so the host does not hold the device back. On the card, the
+resident feed's super-steps of `steps_per_dispatch` steps replay as one
+CUDA graph each after an eager first one, as JAX runs them as one scanned
+program (train/steps.py GraphedSuperStep).
 
 Artifacts as the JAX package writes them: `train_losses.log` is CSV
 `Epoch,Loss,Value` with one row per (epoch, metric), averaged over the
@@ -40,7 +43,8 @@ from disvae_tpu_torch.ops.losses import RECORD_LOSS_EVERY, metric_key_order
 from disvae_tpu_torch.parallel.distributed import is_writer
 from disvae_tpu_torch.parallel.mesh import pad_to_multiple, shard_batch
 from disvae_tpu_torch.train.state import create_train_state
-from disvae_tpu_torch.train.steps import (make_disc_optimizer,
+from disvae_tpu_torch.train.steps import (GraphedSuperStep,
+                                          make_disc_optimizer,
                                           make_optimizer,
                                           make_padded_train_step,
                                           make_resident_multi_train_step,
@@ -112,6 +116,13 @@ class Trainer:
         either this rank's share (`host_slice`; the Trainer sets
         `pad_global_to` to the data axis when it is unset) or the global
         batches, of which the prefetcher takes this rank's share.
+    cuda_graph : bool
+        On a CUDA device with the resident feed and no mesh, replay each
+        super-step of `steps_per_dispatch` steps as one CUDA graph
+        (train/steps.py GraphedSuperStep); the first super-step runs
+        eagerly. False keeps every step eager (the card tests' reference).
+        The CPU, the streamed feed and the mesh path are eager either way
+        (train/steps.py make_resident_multi_train_step decides).
     """
 
     def __init__(self, model, loss_f, lr, seed=None,
@@ -124,7 +135,8 @@ class Trainer:
                  resume=False,
                  pipeline_epochs=True,
                  skip_tiny_tail=False,
-                 mesh=None):
+                 mesh=None,
+                 cuda_graph=True):
         self.loss_f = loss_f
         self.save_dir = save_dir
         self.logger = logger
@@ -162,7 +174,8 @@ class Trainer:
         self._padded_step = make_padded_train_step(loss_f, mesh=mesh,
                                                    state=self.state)
         self._resident_step = make_resident_multi_train_step(
-            loss_f, self.metric_keys, mesh=mesh, state=self.state)
+            loss_f, self.metric_keys, mesh=mesh, state=self.state,
+            graph_steps=self.steps_per_dispatch if cuda_graph else None)
         self._warned_batch_pad = False
         self._resident = None
         self._resident_ds = _NO_DATASET  # identity key of the cached feed
@@ -213,9 +226,13 @@ class Trainer:
         if not os.path.isfile(path):
             return 0
         # on the CPU: load_state_dict moves each tensor to its parameter's
-        # device, and Adam's step counts stay host-side
+        # device (a capturable Adam's step counts too)
         payload = torch.load(path, map_location="cpu", weights_only=True)
         self.state.load_state_dict(payload["state"])
+        # Adam's state tensors were replaced: a captured graph would still
+        # update the old ones, so the next super-steps capture again
+        if isinstance(self._resident_step, GraphedSuperStep):
+            self._resident_step.reset()
         self._start_epoch = int(payload["next_epoch"])
         self.logger.info("Resuming from checkpoint at epoch {}."
                          .format(self._start_epoch))

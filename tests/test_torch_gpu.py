@@ -18,6 +18,9 @@ import pytest
 import torch
 
 from disvae_tpu_torch.ops import log_qz as port
+from graph_cases import LOSSES as GRAPH_LOSSES
+from graph_cases import (binary_wire, differences, graph_against_eager,
+                         loss_config)
 from log_qz_cases import CARD_EDGE_CASES, log_qz_inputs
 
 ATOL = 1e-4
@@ -332,7 +335,9 @@ def test_log_qz_fast_on_card_near_kernel(cuda, logvar_shift):
 
 def _resume_runs(tmp_path, device):
     """btcvae on 64 celeba-shaped images, b32, through the Trainer (resident
-    feed): 4 epochs straight, and 2 epochs, a resumed Trainer, 2 more."""
+    feed, one super-step of two steps an epoch, so every epoch after a
+    Trainer's first replays its CUDA graph): 4 epochs straight, and 2
+    epochs, a resumed Trainer, 2 more. Returns the two Trainers."""
     from disvae_tpu_torch.data import datasets as PD
     from disvae_tpu_torch.models.vae import init_specific_model
     from disvae_tpu_torch.ops import losses as PL
@@ -347,7 +352,8 @@ def _resume_runs(tmp_path, device):
             "Burgess", (3, 64, 64), 10,
             generator=torch.Generator().manual_seed(0), device=device)
         return Trainer(model, cfg, lr=5e-4, seed=1, is_progress_bar=False,
-                       save_dir=str(tmp_path / name), **kw)
+                       save_dir=str(tmp_path / name), steps_per_dispatch=2,
+                       **kw)
 
     def loader():
         return PD.DataLoader(ds, batch_size=32, shuffle=True, seed=0)
@@ -359,7 +365,7 @@ def _resume_runs(tmp_path, device):
     assert resumed._start_epoch == 2
     resumed(loader(), epochs=4, checkpoint_every=1)
     torch.cuda.synchronize()
-    return straight.state, resumed.state
+    return straight, resumed
 
 
 def _resume_diff(a, b):
@@ -387,7 +393,9 @@ def test_resume_on_card_bitexact(cuda, tmp_path, precision):
     2 epochs bit for bit in the parameters, Adam's moments and the step
     counters; under ``highest`` (deterministic cuDNN) and under
     ``default`` (bf16 autocast, cuDNN's own algorithm choice) with the
-    K1/K2 hook, as the flagship trains."""
+    K1/K2 hook, as the flagship trains. The super-steps replay as CUDA
+    graphs: 3 replays straight, 1 after the resume (which captures
+    again)."""
     from disvae_tpu_torch.models import burgess
     from disvae_tpu_torch.ops import convt_bwd as C
     from disvae_tpu_torch.ops.precision import configure
@@ -401,8 +409,104 @@ def test_resume_on_card_bitexact(cuda, tmp_path, precision):
     finally:
         burgess.set_final_convt_impl(burgess.conv_transpose2d)
         configure("highest")
-    assert hooked == (16 if precision == "default" else 0)  # 8 steps a run
-    assert _resume_diff(straight, resumed) == 0.0
+    # the wrapper launches in eager steps and in captures, not in replays:
+    # 16 steps, 10 of them replayed, 3 captures of 2
+    assert hooked == (12 if precision == "default" else 0)
+    assert (straight._resident_step.replays,
+            resumed._resident_step.replays) == (3, 1)
+    assert _resume_diff(straight.state, resumed.state) == 0.0
+    assert int(resumed.state.device_step) == resumed.state.step == 8
+
+
+# ----------------------------------------------------------------------
+# the resident super-step replayed as one CUDA graph
+# ----------------------------------------------------------------------
+
+def _graph_against_eager(cuda, loss):
+    """Four super-steps of K = 4 b64 steps at dsprites shapes, eager and
+    graphed, from one seed (graph_cases.graph_against_eager)."""
+    idx = torch.from_numpy(np.random.RandomState(1).randint(
+        0, 1024, (16, 64))).to(cuda)
+    return graph_against_eager(loss, binary_wire(1024, cuda), idx, 4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("loss", GRAPH_LOSSES)
+def test_graphed_super_step_is_the_eager_one(cuda, loss):
+    """Under ``highest``, four K = 4 super-steps at b64 dsprites shapes:
+    the first runs eagerly, the second captures, three replay. Every
+    metric, parameter, gradient, Adam state tensor, the generator's state
+    and both step counters equal four eager super-steps bit for bit."""
+    m_eager, m_graph, s_eager, s_graph, step = _graph_against_eager(
+        cuda, loss)
+    assert step.captured and step.replays == 3
+    assert torch.equal(m_eager, m_graph)
+    assert differences(s_eager, s_graph) == []
+    assert int(s_graph.device_step) == s_graph.step == 16
+
+
+@pytest.mark.gpu
+def test_graphed_super_step_with_hook_under_default(cuda):
+    """btcvae under ``default`` with the K1/K2 hook: the graph captures one
+    K1 and one K2 launch per step, and the graphed super-steps equal the
+    eager ones bit for bit. The wrappers count 24 launches of each: the
+    eager run's 16 steps, the graphed run's eager super-step and its
+    capture (the replays call no wrapper)."""
+    from disvae_tpu_torch.models import burgess
+    from disvae_tpu_torch.ops import convt_bwd as C
+    from disvae_tpu_torch.ops.precision import configure
+    configure("default")
+    burgess.set_final_convt_impl(C.conv_transpose2d_pl)
+    try:
+        before = (C.convt3_dw.launches, C.convt3_dx.launches)
+        m_eager, m_graph, s_eager, s_graph, step = _graph_against_eager(
+            cuda, "btcvae")
+        launches = (C.convt3_dw.launches - before[0],
+                    C.convt3_dx.launches - before[1])
+    finally:
+        burgess.set_final_convt_impl(burgess.conv_transpose2d)
+        configure("highest")
+    assert step.replays == 3 and launches == (24, 24)
+    assert torch.equal(m_eager, m_graph)
+    assert differences(s_eager, s_graph) == []
+
+
+@pytest.mark.gpu
+def test_graphed_trainer_ragged_epoch(cuda, tmp_path):
+    """The Trainer on 9 batches of 64 and a ragged tail of 37, K = 4, 2
+    epochs: each epoch has two graph-sized super-steps, a short one of one
+    step and the tail, the last two eager on the graph's state. The
+    graphed Trainer's log, epoch losses and state equal the eager
+    Trainer's bit for bit."""
+    from disvae_tpu_torch.data import datasets as PD
+    from disvae_tpu_torch.models.vae import init_specific_model
+    from disvae_tpu_torch.train.trainer import Trainer
+    n = 9 * 64 + 37
+    imgs = (np.random.RandomState(3).rand(n, 64, 64, 1) < 0.1).astype(
+        np.uint8)
+    ds = PD.ArrayDataset(imgs)
+    ds.is_binary, ds._scale = True, 1.0
+    lr, cfg = loss_config("btcvae", n_data=n)
+    runs = {}
+    for graph in (False, True):
+        model = init_specific_model(
+            "Burgess", (1, 64, 64), 10,
+            generator=torch.Generator().manual_seed(0), device=cuda)
+        save_dir = tmp_path / ("graph" if graph else "eager")
+        trainer = Trainer(model, cfg, lr=lr, seed=1, is_progress_bar=False,
+                          save_dir=str(save_dir), steps_per_dispatch=4,
+                          cuda_graph=graph)
+        trainer(PD.DataLoader(ds, batch_size=64, shuffle=True, seed=0),
+                epochs=2, checkpoint_every=1)
+        torch.cuda.synchronize()
+        runs[graph] = (trainer, (save_dir / "train_losses.log").read_text())
+    (eager, eager_log), (graphed, graphed_log) = runs[False], runs[True]
+    assert graphed._resident_step.replays == 3
+    assert eager.state.step == graphed.state.step == 20
+    assert graphed_log == eager_log
+    assert [e["loss"] for e in graphed.epoch_stats] == \
+        [e["loss"] for e in eager.epoch_stats]
+    assert differences(eager.state, graphed.state) == []
 
 
 @pytest.mark.gpu

@@ -115,7 +115,7 @@ def test_math_helpers_match_jax():
         PM.matrix_log_density_gaussian(*t).numpy(),
         np.asarray(JM.matrix_log_density_gaussian(x, mu, logvar)),
         rtol=RTOL, atol=ATOL)
-    for B, N in [(16, 737280), (5, 24)]:
+    for B, N in [(16, 737280), (64, 737280), (5, 24)]:
         np.testing.assert_array_equal(
             PM.log_importance_weight_matrix(B, N).numpy(),
             np.asarray(JM.log_importance_weight_matrix(B, N)))
