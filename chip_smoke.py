@@ -6,10 +6,11 @@ GPU.
     python3 chip_smoke.py --convt-only [--package-root DIR]
     python3 chip_smoke.py --logqz-only [--package-root DIR]
     python3 chip_smoke.py --graph-only
+    python3 chip_smoke.py --zoo-only
 
 `--convt-only` runs phases 1, 2 and 4 only, `--logqz-only` phases 1-3 for
 K3 only, `--graph-only` phase 16 on seeded random images (after building
-K1/K2); `--package-root` imports disvae_tpu_torch from another checkout
+K1/K2), `--zoo-only` phases 1, 2 and 17; `--package-root` imports disvae_tpu_torch from another checkout
 (e.g. a `git archive` of the parent commit unpacked under build/), to time
 its kernels in the same call. Another checkout's K3 is not held to the
 recompute counter (a K3 without that kernel has none).
@@ -40,7 +41,9 @@ Phases (any failure raises and exits non-zero; there is no CPU carry-on):
    the SFU and the FMA pipe at the share that balances the two.
 4. K1/K2 (the final decoder convT's backward) vs plain at the training
    path's shapes: x (256, 32, 32, 32) with dy (256, 3, 64, 64) and
-   (128, ...), Cout = 1 at (256, 32, 16, 16), and (6, 8, 4, 4) -> Cout 5.
+   (128, ...), Cout = 1 at (256, 32, 16, 16), phase 17's x (64, 32, 16,
+   16) with dy (64, 1, 32, 32) and x (64, 32, 32, 32) with dy (64, 1, 64,
+   64), and (6, 8, 4, 4) -> Cout 5.
    float32: max |d| / max |ref| <= 1e-5; bf16 operands: <= 1e-3 against
    the plain version on the same operands (float32 sums) and <= 3e-2
    against cuDNN's float32 backward. Times at b256 celeba in bf16, L2-cold
@@ -153,13 +156,34 @@ Phases (any failure raises and exits non-zero; there is no CPU carry-on):
    busy share and the K1/K2 kernels the replays ran; a graphed Trainer,
    1 epoch + resume + 1, against 2 straight, bit for bit. Every line
    carries the card's name and power limit.
+17. The zoo through the CLIs (after phase 12): betaB on mnist, betaH on
+   fashion and VAE on chairs (ZOO_RUNS), each with the settings of a JAX
+   run under artifacts/ read from its specs.json, for 2 epochs on the
+   full fabricated dataset (60,000, 60,000 and 86,366 images, fabricated
+   at once), at b64 under `--precision default` with the K1/K2 hook,
+   each under torch.profiler; the fashion run keeps the per-epoch
+   training gif (342 x 342 grey frames, decoded exactly). Checks: finite
+   logged and test losses, a falling epoch loss, the super-steps replayed
+   as a CUDA graph, one K1 and one K2 execution per step among the
+   profiler's device events at x (64, 32, 16, 16), dy (64, 1, 32, 32) and x
+   (64, 32, 32, 32), dy (64, 1, 64, 64), the artifact set; then, the
+   three runs at once, `python -m disvae_tpu_torch <name> --is-eval-only
+   -l <loss>` (finite test losses) and `python -m
+   disvae_tpu_torch.cli_viz <name> all` and `--is-posterior`, whose
+   files have the JAX package's geometry at 32 and 64 px cells and decode
+   as in phase 12; no process imported PIL, imageio or pandas (the
+   subprocesses' `-X importtime`). Each epoch's logged loss is printed
+   beside the JAX run's, with the gap (not gated); the phase's seconds
+   with fabrication and each run apart. Every line carries the card's
+   name and power limit.
 
 Its last two lines are JSON: the kernels' record (per kernel `ms`, the
 L2-cold time, `warm_ms`, `plain_ms`, `bound_ms`/`bound_us`, `bound_by`,
 `library_ms`, the L2-cold time of cuDNN's call for the same gradient or
 null; `launches`, the wrapper's count in the main path's run; for K1/K2
 `graph_replays` and `device_launches`, phase 7's replays and the
-profiler's count of the kernel's executions, and
+profiler's count of the kernel's executions, `zoo`, phase 17's wrapper
+launches, the profiler's executions, replays and steps per run, and
 `cudnn_dw_ms`/`cudnn_dx_ms`; for K2 `flat_us`, its floor, and
 `b128_ms`/`b128_warm_ms`; for K3 `shapes`, the per-shape times,
 `eval_sum_ms`/`eval_sum_warm_ms` and `entropy_seconds`), then
@@ -196,9 +220,10 @@ ATOL = 1e-4  # log-density bound of tests/test_metrics.py (kernel vs scan)
 # cuDNN's float32 backward (tests/test_models.py:337)
 CONVT_F32, CONVT_BF16, CONVT_VS_CUDNN = 1e-5, 1e-3, 3e-2
 # (n, h, cin, cout): the path's b256 celeba layer, the FactorVAE half batch,
-# the 32^2 datasets' Cout = 1, and an odd shape
+# the 32^2 datasets' Cout = 1, phase 17's b64 mnist/fashion and chairs
+# layers, and an odd shape
 CONVT_SHAPES = [(256, 32, 32, 3), (128, 32, 32, 3), (256, 16, 32, 1),
-                (6, 4, 8, 5)]
+                (64, 16, 32, 1), (64, 32, 32, 1), (6, 4, 8, 5)]
 N_CELEBA = 25637  # 100 batches of 256 and a ragged tail of 37
 N_DSPRITES = 737280  # the full factor lattice
 EXPORT_ATOL = 1e-5  # exported program vs ServingModel, float32 both
@@ -231,6 +256,25 @@ DP_PARITY, DP_METRICS = 1e-6, 1e-6
 # the graph phase's super-steps: the Trainer's steps_per_dispatch, and
 # how many super-steps each timed turn runs
 GRAPH_K, GRAPH_SUPER = 16, 20
+# Phase 17: (run name, the JAX zoo run under artifacts/ whose settings it
+# trains with, whether it keeps the per-epoch training gif), for 2 epochs
+# on the full fabricated dataset. Between them they cover VAE, betaH and
+# betaB, and mnist, fashion and chairs.
+ZOO_RUNS = [("betaB_mnist", "betaB_mnist_tpu", False),
+            ("betaH_fashion", "betaH_fashion_full_tpu", True),
+            ("VAE_chairs", "VAE_chairs_tpu", False)]
+ZOO_EPOCHS = 2
+# the zoo losses' own coefficients, by their specs.json keys (the CLI's
+# flags with "-" for "_")
+LOSS_COEFS = {"VAE": (), "betaH": ("betaH_B",),
+              "betaB": ("betaB_initC", "betaB_finC", "betaB_G")}
+# the fabricators of phase 17's datasets: (script, flags)
+ZOO_DATA = {"mnist": ("fabricate_mnist.py", ["--dataset", "mnist"]),
+            "fashion": ("fabricate_mnist.py", ["--dataset", "fashion"]),
+            "chairs": ("fabricate_chairs.py", [])}
+# an epoch-1 loss more than this far from the JAX run's is a result fault
+# to hunt (printed, not gated: the init and the noise differ)
+ZOO_GAP = 0.15
 
 
 def log(*args):
@@ -298,10 +342,40 @@ def _sub_blocks(buf, pos):
     return out, pos + 1
 
 
+def _lzw_decode(data):
+    """The indices of a GIF LZW stream of minimum code size 8, up to its end
+    code: codes widen from 9 to 12 bits as the dictionary grows and a clear
+    code (256) resets it."""
+    data = bytes(data) + b"\x00\x00\x00"
+    out, table, pos, width, prev = bytearray(), [], 0, 9, None
+    while pos + width <= (len(data) - 3) * 8:
+        code = (int.from_bytes(data[pos >> 3:(pos >> 3) + 3], "little")
+                >> (pos & 7)) & ((1 << width) - 1)
+        pos += width
+        if code == 256:
+            table = [bytes([i]) for i in range(256)] + [b"", b""]
+            width, prev = 9, None
+            continue
+        if code == 257:
+            return out
+        if not table or code > len(table) or (code == len(table)
+                                              and prev is None):
+            raise AssertionError("LZW code {} beyond a dictionary of {}"
+                                 .format(code, len(table)))
+        entry = table[code] if code < len(table) else prev + prev[:1]
+        if prev is not None and len(table) < 4096:
+            table.append(prev + entry[:1])
+        if len(table) == 1 << width and width < 12:
+            width += 1
+        out += entry
+        prev = entry
+    raise AssertionError("LZW stream without an end code")
+
+
 def read_gif(path):
     """Decode a GIF as the port writes it: full frames with a 256-entry
-    local palette, LZW codes all 9-bit literals with a clear code at most
-    every 254 of them. Returns (frames (H, W, 3) uint8, delays, loop)."""
+    local palette, LZW codes of 9 to 12 bits after a leading clear code.
+    Returns (frames (H, W, 3) uint8, delays, loop)."""
     with open(path, "rb") as f:
         buf = f.read()
     if buf[:6] != b"GIF89a" or buf[10] & 0x80:
@@ -324,17 +398,11 @@ def read_gif(path):
         if (fw, fh) != (w, h) or flags != 0x87 or buf[pos] != 8:
             raise AssertionError("{}: unexpected frame header".format(path))
         data, pos = _sub_blocks(buf, pos + 1)
-        bits = np.unpackbits(np.frombuffer(data, np.uint8), bitorder="little")
-        n = bits.size // 9
-        codes = bits[:n * 9].reshape(n, 9).astype(np.int64) @ (
-            1 << np.arange(9))
-        codes = codes[:np.flatnonzero(codes == 257)[0]]
-        clears = np.flatnonzero(codes == 256)
-        lit = codes[codes != 256]
-        if clears[0] != 0 or np.diff(np.append(clears, codes.size)).max() \
-                > 255 or lit.max() > 255 or lit.size != w * h:
-            raise AssertionError("{}: not a literal-code stream".format(path))
-        frames.append(palette[lit].reshape(h, w, 3))
+        idx = np.frombuffer(_lzw_decode(data), np.uint8)
+        if idx.size != w * h:
+            raise AssertionError("{}: {} indices for {} x {} pixels".format(
+                path, idx.size, w, h))
+        frames.append(palette[idx].reshape(h, w, 3))
     return frames, delays, loop
 
 
@@ -1139,8 +1207,10 @@ def _convt_device_launches(prof):
     """(K1, K2) kernel executions on the device in a torch.profiler window:
     K1's band kernel (one per convt3_dw call, its merge kernel beside it)
     and K2's kernel, whether launched eagerly or replayed in a graph."""
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+    # the profiler's raw events: building its FunctionEvent tree for the
+    # thousands of steps of a training run would take minutes
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == torch.autograd.DeviceType.CUDA]
     # demangled names: "void convt3_dw_band_kernel<...>(...)"
     return (sum("convt3_dw_band" in n for n in names),
             sum("convt3_dx" in n for n in names))
@@ -1630,18 +1700,7 @@ def phase_viz(scratch, runs, datasets):
     """cli_viz `all` on each (name, dataset) run, prior and posterior,
     with seconds per plot; geometry, decoding and CPU-vs-card checks."""
     from disvae_tpu_torch import cli, cli_viz
-    from disvae_tpu_torch.utils.helpers import set_seed
-    from disvae_tpu_torch.utils.modelIO import load_model
-    from disvae_tpu_torch.utils.visualize import Visualizer
-    from disvae_tpu_torch.utils.viz_helpers import GIF_MAX_ERR, get_samples
 
-    grid = _grid_shape(VIZ_ROWS, VIZ_COLS)
-    expect = {f: grid for f in ("samples.png", "data_samples.png",
-                                "reconstruct.png", "prior_traversals.png",
-                                "posterior_traversals.png")}
-    expect["reconstruct_traverse.png"] = (
-        _grid_shape(2, VIZ_COLS)[0] + grid[0], grid[1] + 100)
-    gif_shape = (grid[0], 2 + VIZ_COLS * 66, 3)
     for name, dataset in runs:
         exp_dir = os.path.join(scratch, cli.RES_DIR, name)
         if not os.path.exists(os.path.join(exp_dir, "train_losses.log")):
@@ -1658,61 +1717,346 @@ def phase_viz(scratch, runs, datasets):
                                           "prior", ", ".join(
                                               "{} {:.3f} s".format(k, v)
                                               for k, v in seconds.items())))
-        for f, shape in expect.items():
-            img = read_png(os.path.join(exp_dir, f))
-            if img.shape != shape + (3,):
-                raise AssertionError("{}/{}: {} != {}".format(
-                    name, f, img.shape, shape + (3,)))
-        gif_path = os.path.join(exp_dir, "posterior_traversals.gif")
-        frames, delays, loop = read_gif(gif_path)
-        if len(frames) != VIZ_GIF_FRAMES or frames[0].shape != gif_shape \
-                or delays != [8] * VIZ_GIF_FRAMES or loop != 0:
-            raise AssertionError("{} posterior gif: {} frames of {}".format(
-                name, len(frames), frames[0].shape))
+        _viz_checks(exp_dir, name, dataset, px=64)
+    _no_image_libraries("the viz path", sys.modules)
 
-        # the prior traversals: the written PNG is the card's render, which
-        # the CPU's render matches within 1
-        renders = {}
-        for dev in ("cuda", "cpu"):
-            viz = Visualizer(load_model(exp_dir, device=dev), dataset,
-                             exp_dir, save_images=False,
-                             loss_of_interest="kl_loss_", max_traversal=2)
-            renders[dev] = viz.traversals(is_reorder_latents=True,
-                                          n_per_latent=VIZ_COLS,
-                                          n_latents=VIZ_ROWS)
-        png = read_png(os.path.join(exp_dir, "prior_traversals.png"))
-        if not np.array_equal(png, renders["cuda"]):
-            raise AssertionError("{}: prior_traversals.png does not decode "
-                                 "to the card's render".format(name))
-        d_cpu = _max_diff(renders["cuda"], renders["cpu"])
-        # the posterior gif again from the CLI's samples: the same bytes,
-        # decoding to the rendered frames (grey exactly)
-        with open(gif_path, "rb") as f:
-            cli_bytes = f.read()
-        set_seed(SEED)
-        samples = get_samples(dataset, VIZ_ROWS * VIZ_COLS)
-        viz = Visualizer(load_model(exp_dir, device="cuda"), dataset,
-                         exp_dir, loss_of_interest="kl_loss_",
-                         max_traversal=2)
-        rendered = viz.gif_traversals(samples[:VIZ_COLS], n_latents=VIZ_ROWS)
-        with open(gif_path, "rb") as f:
-            same = f.read() == cli_bytes
-        frames, _, _ = read_gif(gif_path)
-        err = max(_max_diff(a, b) for a, b in zip(frames, rendered))
-        grey = all((r[..., 0] == r[..., 2]).all() for r in rendered)
-        bound = 0 if grey else GIF_MAX_ERR
-        log("viz {}: prior traversals card vs CPU max |d| {} (uint8); PNG "
-            "decodes exactly; posterior gif {} frames, rerender {} the "
-            "CLI's bytes, decoded within {} ({} bound {})".format(
-                name, d_cpu, len(frames), "equals" if same else "differs from",
-                err, "grey" if grey else "RGB", bound))
-        if d_cpu > 1 or not same or err > bound:
-            raise AssertionError("viz checks failed for {}".format(name))
-    loaded = sorted(m for m in ("PIL", "imageio", "pandas")
-                    if m in sys.modules)
+
+def _no_image_libraries(what, modules, tag=""):
+    """Raise if any of PIL, imageio or pandas is among `modules` (module
+    names); `tag` prefixes the line logged."""
+    loaded = sorted({m.split(".")[0] for m in modules}
+                    & {"PIL", "imageio", "pandas"})
     if loaded:
-        raise AssertionError("the viz path loaded {}".format(loaded))
-    log("viz path: PIL, imageio and pandas never imported")
+        raise AssertionError("{} loaded {}".format(what, loaded))
+    log("{}{}: PIL, imageio and pandas never imported".format(tag, what))
+
+
+def _viz_checks(exp_dir, name, dataset, px, tag=""):
+    """The files of `cli_viz <name> all -s SEED --is-show-loss`, prior and
+    posterior, at the JAX package's geometry for px-pixel cells (-r 6 -c
+    7); prior_traversals.png decodes to the card's render, which the CPU's
+    matches within 1; the posterior gif, rendered again from the CLI's
+    samples, is the CLI's bytes and decodes to the rendered frames (grey
+    exactly, RGB within the palette bound)."""
+    from disvae_tpu_torch.utils.helpers import set_seed
+    from disvae_tpu_torch.utils.modelIO import load_model
+    from disvae_tpu_torch.utils.visualize import Visualizer
+    from disvae_tpu_torch.utils.viz_helpers import GIF_MAX_ERR, get_samples
+
+    grid = _grid_shape(VIZ_ROWS, VIZ_COLS, px)
+    expect = {f: grid for f in ("samples.png", "data_samples.png",
+                                "reconstruct.png", "prior_traversals.png",
+                                "posterior_traversals.png")}
+    expect["reconstruct_traverse.png"] = (
+        _grid_shape(2, VIZ_COLS, px)[0] + grid[0], grid[1] + 100)
+    gif_shape = grid + (3,)
+    for f, shape in expect.items():
+        img = read_png(os.path.join(exp_dir, f))
+        if img.shape != shape + (3,):
+            raise AssertionError("{}/{}: {} != {}".format(
+                name, f, img.shape, shape + (3,)))
+    gif_path = os.path.join(exp_dir, "posterior_traversals.gif")
+    frames, delays, loop = read_gif(gif_path)
+    if len(frames) != VIZ_GIF_FRAMES or frames[0].shape != gif_shape \
+            or delays != [8] * VIZ_GIF_FRAMES or loop != 0:
+        raise AssertionError("{} posterior gif: {} frames of {}".format(
+            name, len(frames), frames[0].shape))
+
+    # the prior traversals: the written PNG is the card's render, which
+    # the CPU's render matches within 1
+    renders = {}
+    for dev in ("cuda", "cpu"):
+        viz = Visualizer(load_model(exp_dir, device=dev), dataset,
+                         exp_dir, save_images=False,
+                         loss_of_interest="kl_loss_", max_traversal=2)
+        renders[dev] = viz.traversals(is_reorder_latents=True,
+                                      n_per_latent=VIZ_COLS,
+                                      n_latents=VIZ_ROWS)
+    png = read_png(os.path.join(exp_dir, "prior_traversals.png"))
+    if not np.array_equal(png, renders["cuda"]):
+        raise AssertionError("{}: prior_traversals.png does not decode "
+                             "to the card's render".format(name))
+    d_cpu = _max_diff(renders["cuda"], renders["cpu"])
+    # the posterior gif again from the CLI's samples: the same bytes,
+    # decoding to the rendered frames (grey exactly)
+    with open(gif_path, "rb") as f:
+        cli_bytes = f.read()
+    set_seed(SEED)
+    samples = get_samples(dataset, VIZ_ROWS * VIZ_COLS)
+    viz = Visualizer(load_model(exp_dir, device="cuda"), dataset,
+                     exp_dir, loss_of_interest="kl_loss_",
+                     max_traversal=2)
+    rendered = viz.gif_traversals(samples[:VIZ_COLS], n_latents=VIZ_ROWS)
+    with open(gif_path, "rb") as f:
+        same = f.read() == cli_bytes
+    frames, _, _ = read_gif(gif_path)
+    err = max(_max_diff(a, b) for a, b in zip(frames, rendered))
+    grey = all((r[..., 0] == r[..., 2]).all() for r in rendered)
+    bound = 0 if grey else GIF_MAX_ERR
+    log(tag + "viz {}: prior traversals card vs CPU max |d| {} (uint8); PNG "
+        "decodes exactly; posterior gif {} frames ({:.0f} kB), rerender {} "
+        "the CLI's bytes, decoded within {} ({} bound {})".format(
+            name, d_cpu, len(frames), len(cli_bytes) / 1e3,
+            "equals" if same else "differs from", err,
+            "grey" if grey else "RGB", bound))
+    if d_cpu > 1 or not same or err > bound:
+        raise AssertionError("viz checks failed for {}".format(name))
+
+
+def zoo_specs(jax_run):
+    """The specs.json of the JAX run artifacts/<jax_run>/."""
+    with open(os.path.join(REPO, "artifacts", jax_run, "specs.json")) as f:
+        return json.load(f)
+
+
+def zoo_flags(name, jax_run, gif):
+    """Phase 17's CLI flags for run `name`: every setting that defines the
+    JAX run artifacts/<jax_run>/, from its specs.json, then the phase's
+    own: the name, 2 epochs, no progress bar and, unless `gif`,
+    --no-viz-gif. No -x: a named experiment's INI would override them."""
+    specs = zoo_specs(jax_run)
+    flags = [name, "-d", specs["dataset"], "-l", specs["loss"],
+             "-m", specs["model_type"], "-z", str(specs["latent_dim"]),
+             "-r", specs["rec_dist"], "-a", repr(specs["reg_anneal"]),
+             "--lr", repr(specs["lr"]), "-b", str(specs["batch_size"]),
+             "--precision", specs["precision"], "-s", str(specs["seed"])]
+    for key in LOSS_COEFS[specs["loss"]]:
+        flags += ["--" + key.replace("_", "-"), repr(specs[key])]
+    flags += ["-e", str(ZOO_EPOCHS), "--no-progress-bar"]
+    return flags + ([] if gif else ["--no-viz-gif"])
+
+
+def _log_losses(path):
+    """{epoch: the `loss` row} of a train_losses.log."""
+    with open(path) as f:
+        return {int(e): float(v) for e, k, v in
+                (line.strip().split(",") for line in f.readlines()[1:])
+                if k == "loss"}
+
+
+def _imported(stderr):
+    """The modules a `python -X importtime` process imported, from its
+    stderr."""
+    return [line.rsplit("|", 1)[1].strip() for line in stderr.splitlines()
+            if line.startswith("import time:") and "|" in line
+            and not line.rstrip().endswith("imported package")]
+
+
+def _zoo_after(name, loss, env, scratch):
+    """The eval-only CLI and cli_viz `all`, prior then posterior, on a
+    trained run, as subprocesses; returns [(argv, seconds, stderr)]."""
+    out = []
+    for argv in (["disvae_tpu_torch", name, "--is-eval-only", "-l", loss,
+                  "--no-progress-bar"],
+                 ["disvae_tpu_torch.cli_viz", name, "all", "-s", str(SEED),
+                  "--is-show-loss"],
+                 ["disvae_tpu_torch.cli_viz", name, "all", "-s", str(SEED),
+                  "--is-show-loss", "--is-posterior"]):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-X", "importtime", "-m"]
+                              + argv, cwd=scratch, env=env,
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError("{} exited {}:\n{}".format(
+                " ".join(argv), proc.returncode, "\n".join(
+                    l for l in proc.stderr.splitlines()
+                    if not l.startswith("import time:"))[-3000:]))
+        out.append((argv, time.perf_counter() - t0, proc.stderr))
+    return out
+
+
+def phase_zoo(C, scratch, smi):
+    """Phase 17: VAE, betaH and betaB, on mnist, fashion and chairs,
+    through the CLIs with the K1/K2 hook: each run of ZOO_RUNS trains with
+    its JAX run's settings for 2 epochs in process, then the eval-only CLI
+    and cli_viz run as `python -m` subprocesses, the three runs' at once.
+    Returns {run: K1/K2 wrapper launches, executions on the device (the
+    profiler's), replays and steps}."""
+    t_phase = time.perf_counter()
+    root = os.path.join(scratch, "data")
+    os.environ["DISVAE_DATA_ROOT"] = root  # as phase 5 sets it
+    from disvae_tpu_torch import cli
+    from disvae_tpu_torch.data import datasets
+    from disvae_tpu_torch.models import burgess
+    from disvae_tpu_torch.ops.precision import configure
+    from disvae_tpu_torch.utils.modelIO import load_metadata
+    from disvae_tpu_torch.utils.visualize import GifTraversalsTraining
+    if datasets.DATA_ROOT != root:
+        raise AssertionError("the dataset module reads {}, not {}".format(
+            datasets.DATA_ROOT, root))
+
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(REPO, "tools", script), "--root",
+         os.path.join(root, ds)] + flags, stdout=subprocess.DEVNULL)
+        for ds, (script, flags) in ZOO_DATA.items()]
+    rcs = [p.wait() for p in procs]
+    if any(rcs):
+        raise AssertionError("fabricating {} exited {}".format(
+            list(ZOO_DATA), rcs))
+    t_fab = time.perf_counter() - t0
+    log("[{}] phase 17: fabricated {} in {:.1f} s (at once)".format(
+        smi, ", ".join("{} ({:,} images)".format(
+            ds, len(datasets.get_dataset(ds)())) for ds in ZOO_DATA),
+        t_fab))
+
+    rendered = []
+
+    class KeptGif(GifTraversalsTraining):
+        def save_reset(self):
+            rendered[:] = self.images
+            super().save_reset()
+
+    dw, dx = C.convt3_dw, C.convt3_dx
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    shapes = set()
+
+    def convt_seen(x, w, b):
+        """The hook, noting the (x, dy) shapes its backward gets."""
+        y = C.conv_transpose2d_pl(x, w, b)
+        if y.requires_grad:
+            y.register_hook(lambda dy: shapes.add((tuple(x.shape),
+                                                   tuple(dy.shape))))
+        return y
+
+    record, t_train, t_prof = {}, {}, {}
+    for name, jax_run, gif in ZOO_RUNS:
+        specs = zoo_specs(jax_run)
+        burgess.set_final_convt_impl(convt_seen)
+        cli.GifTraversalsTraining = KeptGif
+        shapes.clear()
+        try:
+            dw.launches = dx.launches = 0
+            with torch.profiler.profile(activities=acts) as prof:
+                trainer, _, seconds = _cli_run(cli, scratch, zoo_flags(
+                    name, jax_run, gif))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            launches = (dw.launches, dx.launches)
+        finally:
+            cli.GifTraversalsTraining = GifTraversalsTraining
+            burgess.set_final_convt_impl(burgess.conv_transpose2d)
+            configure("highest")
+        t_train[name] = seconds
+        exp_dir = os.path.join(scratch, cli.RES_DIR, name)
+        n = len(datasets.get_dataset(specs["dataset"])())
+        B, k = specs["batch_size"], trainer.steps_per_dispatch
+        steps = trainer.state.step
+        replays = _replays(trainer, name)
+        executions = _convt_device_launches(prof)
+        t_prof[name] = time.perf_counter() - t0
+        c, h = trainer.model.img_size[:2]
+        want = ((B, 32, h // 2, h // 2), (B, c, h, h))
+        log("[{}] {} ({} {}, {:,} images, b{}, {}, K1/K2 hook, under "
+            "torch.profiler): {:.1f} s, {} steps, K1/K2 wrapper launches {} "
+            "/ {}, {} CUDA graph replays of {}, executions on the device {} "
+            "/ {} (profiler; its stop and the count {:.1f} s); (x, dy) into "
+            "K1/K2 {}".format(
+                smi, name, specs["loss"], specs["dataset"], n, B,
+                specs["precision"], seconds, steps, *launches, replays, k,
+                *executions, t_prof[name], sorted(shapes)))
+        if steps != ZOO_EPOCHS * -(-n // B) or executions != (steps, steps) \
+                or min(launches) < 1 or want not in shapes \
+                or any(x[1:] != want[0][1:] or dy[1:] != want[1][1:]
+                       for x, dy in shapes):
+            raise AssertionError("{}: expected one K1 and one K2 execution "
+                                 "per step at x {}, dy {}".format(
+                                     name, *want))
+        rows = _read_log(exp_dir)
+        if sorted({r[0] for r in rows}) != ["0", "1"] \
+                or not all(math.isfinite(float(r[2])) for r in rows):
+            raise AssertionError("{} train_losses.log rows: {}".format(
+                name, rows[:3]))
+        stats = trainer.epoch_stats
+        ours = _log_losses(os.path.join(exp_dir, "train_losses.log"))
+        ref = _log_losses(os.path.join(REPO, "artifacts", jax_run,
+                                       "train_losses.log"))
+        for e in stats:
+            i = e["epoch"]
+            gap = (ours[i] - ref[i]) / abs(ref[i])
+            log("[{}]   {} epoch {}: mean loss {:.4f} ({:.0f} images/sec); "
+                "train_losses.log loss {:.4f} against {}'s {:.4f}: {:+.2%}"
+                "{}".format(smi, name, i, e["loss"], e["images_per_sec"],
+                            ours[i], jax_run, ref[i], gap,
+                            " (beyond {:.0%}: a result fault to hunt)".format(
+                                ZOO_GAP) if i == 1 and abs(gap) > ZOO_GAP
+                            else ""))
+        if not stats[1]["loss"] < stats[0]["loss"]:
+            raise AssertionError("{}: the epoch loss did not fall: {}".format(
+                name, stats))
+        for f in ("train_losses.log", "specs.json", "model.pt",
+                  "train_state.pt", "test_losses.log"):
+            if not os.path.exists(os.path.join(exp_dir, f)):
+                raise AssertionError("{}: missing artifact {}".format(name, f))
+        losses = load_metadata(exp_dir, filename="test_losses.log")
+        if not all(math.isfinite(v) for v in losses.values()):
+            raise AssertionError("{}: non-finite test losses".format(name))
+        os.remove(os.path.join(exp_dir, "test_losses.log"))
+        if gif:
+            frames, delays, loop = read_gif(os.path.join(exp_dir,
+                                                         "training.gif"))
+            side = 10 * (trainer.model.img_size[1] + 2) + 2
+            if len(frames) != ZOO_EPOCHS or len(rendered) != ZOO_EPOCHS \
+                    or any(f.shape != (side, side, 3) for f in frames) \
+                    or delays != [8] * ZOO_EPOCHS or loop != 0 \
+                    or any(_max_diff(a, b) for a, b in zip(frames,
+                                                           rendered)):
+                raise AssertionError("{} training.gif: {} frames of {}, "
+                                     "delays {}, loop {}".format(
+                                         name, len(frames), frames[0].shape,
+                                         delays, loop))
+            log("[{}]   {} training.gif: {} frames of {} x {} grey, decoded "
+                "exactly".format(smi, name, len(frames), side, side))
+        record[name] = dict(launches=launches, device_launches=executions,
+                            graph_replays=replays, steps=steps)
+
+    # the eval-only CLI and cli_viz, each run's three in turn, the runs at
+    # once
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.dirname(
+        os.path.dirname(os.path.abspath(C.__file__)))))
+    after, errors = {}, []
+
+    def chain(name, loss):
+        try:
+            after[name] = _zoo_after(name, loss, env, scratch)
+        except Exception as e:  # re-raised below, after every chain ended
+            errors.append(e)
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=chain, args=(
+        name, zoo_specs(jax_run)["loss"])) for name, jax_run, _ in ZOO_RUNS]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    t_after = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    t0 = time.perf_counter()
+    for name, jax_run, _ in ZOO_RUNS:
+        specs = zoo_specs(jax_run)
+        exp_dir = os.path.join(scratch, cli.RES_DIR, name)
+        losses = load_metadata(exp_dir, filename="test_losses.log")
+        log("[{}] {}: eval-only CLI {:.1f} s, test loss {}; cli_viz all "
+            "{:.1f} s, --is-posterior {:.1f} s".format(
+                smi, name, after[name][0][1], losses["loss"],
+                after[name][1][1], after[name][2][1]))
+        if not all(math.isfinite(v) for v in losses.values()):
+            raise AssertionError("{}: non-finite eval-only test losses"
+                                 .format(name))
+        tag = "[{}] ".format(smi)
+        for argv, _, stderr in after[name]:
+            _no_image_libraries(" ".join(argv), _imported(stderr), tag)
+        _viz_checks(exp_dir, name, specs["dataset"],
+                    px=specs["img_size"][1], tag=tag)
+    _no_image_libraries("phase 17's process", sys.modules, tag)
+    log("[{}] phase 17: {:.1f} s in all: fabrication {:.1f} s, training {} "
+        "(in turn), the profiler's stop and count {:.1f} s, eval-only and "
+        "cli_viz {:.1f} s (the runs at once), checks {:.1f} s".format(
+            smi, time.perf_counter() - t_phase, t_fab, ", ".join(
+                "{} {:.1f} s".format(k, v) for k, v in t_train.items()),
+            sum(t_prof.values()), t_after, time.perf_counter() - t0))
+    return record
 
 
 def _native_gathers():
@@ -2288,6 +2632,10 @@ def main(argv=None):
     parser.add_argument("--graph-only", action="store_true",
                         help="build K1/K2 and run the CUDA-graph phase on "
                         "seeded random images only, then stop")
+    parser.add_argument("--zoo-only", action="store_true",
+                        help="build every kernel and run phase 17 (VAE, "
+                        "betaH, betaB on mnist, fashion, chairs through the "
+                        "CLIs) only, then stop")
     parser.add_argument("--package-root", default=REPO,
                         help="import disvae_tpu_torch from this directory "
                         "(another checkout, to time its kernels in the same "
@@ -2347,10 +2695,17 @@ def main(argv=None):
         builds["native_gather"] = types.SimpleNamespace(build=build_native)
     paths = phase_build(builds)
     phase_sass(paths["log_qz"], getattr(K, "SAMPLES_PER_THREAD", None))
-    record = phase_kernels(K, strict)
-    convt = phase_convt_kernels(C, probe, paths["flat_floor"])
     build_dir = os.path.join(REPO, "build")
     os.makedirs(build_dir, exist_ok=True)
+    if args.zoo_only:
+        scratch = tempfile.mkdtemp(prefix="chip_smoke_", dir=build_dir)
+        try:
+            log(json.dumps({"zoo": phase_zoo(C, scratch, smi)}))
+        finally:
+            shutil.rmtree(scratch, ignore_errors=True)
+        return 0
+    record = phase_kernels(K, strict)
+    convt = phase_convt_kernels(C, probe, paths["flat_floor"])
     scratch = tempfile.mkdtemp(prefix="chip_smoke_", dir=build_dir)
     try:
         exp_dir, datasets, launches, metrics, timings = phase_main_path(
@@ -2372,6 +2727,7 @@ def main(argv=None):
         phase_viz(scratch, [("chip_smoke_btcvae_celeba", "celeba"),
                             (os.path.basename(exp_dir), "dsprites")],
                   datasets)
+        zoo = phase_zoo(C, scratch, smi)
         if strict:
             phase_data_parallel(C, K, scratch, smi, datasets, train_stats,
                                 (exp_dir, metrics, timings))
@@ -2395,11 +2751,21 @@ def main(argv=None):
         dict(name="convt3_dw", route="cuda", source=convt_src,
              replaces="disvae_tpu/ops/pallas_convt_bwd.py:71",
              launches=dw_launches, graph_replays=replays,
-             device_launches=device[0], **convt["convt3_dw"], **cudnn),
+             device_launches=device[0], zoo={
+                 name: dict(launches=r["launches"][0],
+                            device_launches=r["device_launches"][0],
+                            graph_replays=r["graph_replays"],
+                            steps=r["steps"]) for name, r in zoo.items()},
+             **convt["convt3_dw"], **cudnn),
         dict(name="convt3_dx", route="cuda", source=convt_src,
              replaces="disvae_tpu/ops/pallas_convt_bwd.py:108",
              launches=dx_launches, graph_replays=replays,
-             device_launches=device[1], **convt["convt3_dx"], **cudnn)]}))
+             device_launches=device[1], zoo={
+                 name: dict(launches=r["launches"][1],
+                            device_launches=r["device_launches"][1],
+                            graph_replays=r["graph_replays"],
+                            steps=r["steps"]) for name, r in zoo.items()},
+             **convt["convt3_dx"], **cudnn)]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -259,6 +259,66 @@ def parse_arguments(args_to_parse):
     return args
 
 
+def build_trainer(args, device, exp_dir, seeds, mesh=None, model=None):
+    """The training loader and Trainer of a run of `args` (FactorVAE's
+    batch and epoch doubling is applied to `args`): `model` is trained when
+    given, else the init drawn from `seeds` = (init seed, train seed).
+    Returns (train_loader, trainer)."""
+    logger = logging.getLogger(__name__)  # `main` sets its level and handler
+    init_seed, train_seed = seeds
+    if args.loss == "factor":
+        logger.info("FactorVAE consumes two half-batches per iteration; "
+                    "doubling batch size and epoch count so each epoch "
+                    "sees the dataset the same number of times.")
+        args.batch_size *= 2
+        args.epochs *= 2
+
+    # each rank feeds only its share of every global batch; the
+    # (seed, epoch)-keyed permutation is the same on every rank
+    host_slice = pad_global_to = None
+    if mesh is not None:
+        host_slice = (mesh.data_rank, mesh.data_size)
+        pad_global_to = mesh.data_size
+    train_loader = get_dataloaders(args.dataset,
+                                   batch_size=args.batch_size,
+                                   logger=logger, seed=args.seed,
+                                   host_slice=host_slice,
+                                   pad_global_to=pad_global_to)
+    logger.info("Train {} with {} samples".format(
+        args.dataset, len(train_loader.dataset)))
+
+    args.img_size = get_img_size(args.dataset)
+    if model is None:
+        model = init_specific_model(
+            args.model_type, args.img_size, args.latent_dim,
+            generator=torch.Generator().manual_seed(init_seed),
+            device=device)
+    logger.info('Num parameters in model: {}'.format(get_n_param(model)))
+    # The writer rank renders the training gif. Every rank holds a full
+    # replica of the model on its own GPU, so the frame is a local
+    # computation: JAX's _LocalDeviceGif, which re-homes mesh-committed
+    # params onto one device, has no counterpart here.
+    gif_visualizer = None
+    if is_writer() and not args.no_viz_gif:
+        gif_visualizer = GifTraversalsTraining(model, args.dataset,
+                                               exp_dir)
+    loss_f = get_loss_f(args.loss,
+                        n_data=len(train_loader.dataset),
+                        device=device,
+                        **vars(args))
+    trainer = Trainer(model, loss_f, lr=args.lr,
+                      seed=train_seed,
+                      logger=logger,
+                      save_dir=exp_dir,
+                      is_progress_bar=not args.no_progress_bar,
+                      gif_visualizer=gif_visualizer,
+                      resident=args.resident_data,
+                      resume=args.resume,
+                      skip_tiny_tail=True,
+                      mesh=mesh)
+    return train_loader, trainer
+
+
 def main(args):
     """Run the CLI. Returns (trainer, evaluator): the Trainer that ran
     (None with --is-eval-only; its `epoch_stats` hold each epoch's mean
@@ -327,55 +387,8 @@ def main(args):
                 create_safe_directory(exp_dir, logger=logger)
         barrier("disvae:results-dir")
 
-        if args.loss == "factor":
-            logger.info("FactorVAE consumes two half-batches per iteration; "
-                        "doubling batch size and epoch count so each epoch "
-                        "sees the dataset the same number of times.")
-            args.batch_size *= 2
-            args.epochs *= 2
-
-        # each rank feeds only its share of every global batch; the
-        # (seed, epoch)-keyed permutation is the same on every rank
-        host_slice = pad_global_to = None
-        if mesh is not None:
-            host_slice = (mesh.data_rank, mesh.data_size)
-            pad_global_to = mesh.data_size
-        train_loader = get_dataloaders(args.dataset,
-                                       batch_size=args.batch_size,
-                                       logger=logger, seed=args.seed,
-                                       host_slice=host_slice,
-                                       pad_global_to=pad_global_to)
-        logger.info("Train {} with {} samples".format(
-            args.dataset, len(train_loader.dataset)))
-
-        args.img_size = get_img_size(args.dataset)
-        model = init_specific_model(
-            args.model_type, args.img_size, args.latent_dim,
-            generator=torch.Generator().manual_seed(init_seed),
-            device=device)
-        logger.info('Num parameters in model: {}'.format(get_n_param(model)))
-        # The writer rank renders the training gif. Every rank holds a full
-        # replica of the model on its own GPU, so the frame is a local
-        # computation: JAX's _LocalDeviceGif, which re-homes mesh-committed
-        # params onto one device, has no counterpart here.
-        gif_visualizer = None
-        if is_writer() and not args.no_viz_gif:
-            gif_visualizer = GifTraversalsTraining(model, args.dataset,
-                                                   exp_dir)
-        loss_f = get_loss_f(args.loss,
-                            n_data=len(train_loader.dataset),
-                            device=device,
-                            **vars(args))
-        trainer = Trainer(model, loss_f, lr=args.lr,
-                          seed=train_seed,
-                          logger=logger,
-                          save_dir=exp_dir,
-                          is_progress_bar=not args.no_progress_bar,
-                          gif_visualizer=gif_visualizer,
-                          resident=args.resident_data,
-                          resume=args.resume,
-                          skip_tiny_tail=True,
-                          mesh=mesh)
+        train_loader, trainer = build_trainer(
+            args, device, exp_dir, (init_seed, train_seed), mesh=mesh)
         if args.profile and is_writer():
             profile_dir = os.path.join(exp_dir, "profile")
             os.makedirs(profile_dir, exist_ok=True)

@@ -2,7 +2,8 @@
 port's own CLIs, then snapshot it into an output directory.
 
     python -m disvae_tpu_torch.evidence <name> <experiment> [-s SEED]
-        --out DIR [--train-flags "..."] [--skip-metrics] [--no-cuda]
+        --out DIR [--train-flags "..."] [--init-from DIR] [--skip-metrics]
+        [--no-cuda]
 
 Counterpart of tools/evidence_run.sh and tools/snapshot_artifacts.sh. The
 legs run as subprocesses, in the current directory (the run lands in
@@ -24,9 +25,21 @@ seconds. Each leg's output goes to DIR/legs/<leg>.log; a leg that exits
 non-zero raises with the tail of its log. `--skip-metrics` leaves out
 legs 2 and 3 (datasets without a factor lattice). Every leg runs on the
 card unless `--no-cuda` is passed.
+
+`--init-from DIR` trains from the weights of the model saved in DIR (a
+`model.pt`, or the JAX package's `model.npz`, with its `specs.json`)
+instead of the init the CLI draws: before the train leg, `results/<name>/`
+is created as the CLI creates it and given a step-0 `train_state.pt`
+holding those weights and everything else as the CLI builds it at `-s
+<seed>` (a fresh Adam, the training noise's generator, both step counters
+at 0, next epoch 0); the train leg then runs with `--resume`. With the
+seed's own init in DIR the run is the plain `-s <seed>` run, bit for bit.
+`device.json` names DIR and the SHA-256 of its weights file under
+`init_from` (null without the option).
 """
 
 import argparse
+import hashlib
 import json
 import os
 import shlex
@@ -38,6 +51,7 @@ import time
 
 import torch
 
+from disvae_tpu_torch import cli
 from disvae_tpu_torch.cli import RES_DIR
 
 # the package's parent directory: the legs import the package from here
@@ -46,7 +60,7 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CANONICAL = ("specs.json", "train_losses.log", "test_losses.log",
              "metrics.log")
 SNAPSHOT_SUFFIXES = (".json", ".log", ".png", ".gif")
-TAIL_LINES = 20
+TAIL_LINES = 40
 
 
 class LegFailed(RuntimeError):
@@ -65,6 +79,9 @@ def parse_arguments(argv):
                         help="directory the evidence set is copied into")
     parser.add_argument("--train-flags", default="",
                         help="extra flags for the train leg only")
+    parser.add_argument("--init-from", metavar="DIR",
+                        help="train from the weights of the model saved in "
+                        "DIR (model.pt or model.npz, and specs.json)")
     parser.add_argument("--skip-metrics", action="store_true",
                         help="leave out both MIG/AAM legs")
     parser.add_argument("--no-cuda", action="store_true",
@@ -75,12 +92,13 @@ def parse_arguments(argv):
 def legs(args):
     """[(leg name, argv, metrics suffix of the snapshot taken after it, or
     None for no snapshot)] in run order."""
-    cli = [sys.executable, "-m", "disvae_tpu_torch", args.name, "-x",
-           args.experiment, "--no-progress-bar"]
+    base = [sys.executable, "-m", "disvae_tpu_torch", args.name, "-x",
+            args.experiment, "--no-progress-bar"]
     cuda = ["--no-cuda"] if args.no_cuda else []
-    eval_only = cli + ["--is-eval-only", "--is-metrics", "--no-test"] + cuda
-    out = [("train", cli + ["-s", str(args.seed)]
-            + shlex.split(args.train_flags) + cuda, None)]
+    eval_only = base + ["--is-eval-only", "--is-metrics", "--no-test"] + cuda
+    resume = ["--resume"] if args.init_from else []
+    out = [("train", base + ["-s", str(args.seed)]
+            + shlex.split(args.train_flags) + cuda + resume, None)]
     if not args.skip_metrics:
         out += [("metrics-reference-faithful", eval_only,
                  "reference-faithful"),
@@ -90,6 +108,40 @@ def legs(args):
     out.append(("viz", [sys.executable, "-m", "disvae_tpu_torch.cli_viz",
                         args.name, "all", "-s", "1"] + cuda, "corrected"))
     return out
+
+
+def write_init_state(init_from, train_argv):
+    """Create the train leg's run directory as its CLI would and write a
+    step-0 train_state.pt into it: the weights of the model saved in
+    `init_from`, and the rest of the state from the CLI's own Trainer build
+    for `train_argv` (the leg's argv after `-m disvae_tpu_torch`, which
+    resumes from this state). Returns `init_from`'s record for
+    device.json."""
+    from disvae_tpu_torch.data.datasets import get_img_size
+    from disvae_tpu_torch.utils.helpers import (create_safe_directory,
+                                                derive_seeds, get_device)
+    from disvae_tpu_torch.utils.modelIO import (JAX_MODEL_FILENAME,
+                                                MODEL_FILENAME, load_model)
+
+    args = cli.parse_arguments(train_argv)
+    args.resume = False  # there is nothing to resume from yet
+    device = get_device(args.no_cuda)
+    model = load_model(init_from, device=device).train()
+    want = (args.model_type, get_img_size(args.dataset), args.latent_dim)
+    have = (model.model_type, tuple(model.img_size), model.latent_dim)
+    if have != want:
+        raise ValueError("the model in {} is {}, the run trains {}".format(
+            init_from, have, want))
+    run_dir = os.path.join(RES_DIR, args.name)
+    create_safe_directory(run_dir)
+    _, trainer = cli.build_trainer(args, device, run_dir,
+                                   derive_seeds(args.seed, 2), model=model)
+    trainer.save_checkpoint(-1)  # next_epoch 0
+    weights = next(f for f in (MODEL_FILENAME, JAX_MODEL_FILENAME)
+                   if os.path.exists(os.path.join(init_from, f)))
+    with open(os.path.join(init_from, weights), "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()
+    return {"dir": init_from, "weights": weights, "sha256": digest}
 
 
 def run_leg(name, argv, log_path):
@@ -175,13 +227,18 @@ def main(argv=None):
     log_dir = os.path.join(args.out, "legs")
     os.makedirs(log_dir, exist_ok=True)
     seconds = {}
+    init_from = None
+    if args.init_from:
+        train_argv = legs(args)[0][1]
+        init_from = write_init_state(args.init_from, train_argv[3:])
     for name, argv, suffix in legs(args):
         seconds[name] = run_leg(name, argv,
                                 os.path.join(log_dir, name + ".log"))
         if suffix is not None:
             snapshot(run_dir, args.out, suffix)
     record.update(experiment=args.experiment, seed=args.seed,
-                  train_flags=args.train_flags, leg_seconds=seconds)
+                  init_from=init_from, train_flags=args.train_flags,
+                  leg_seconds=seconds)
     with open(os.path.join(args.out, "device.json"), "w") as f:
         json.dump(record, f, indent=2, sort_keys=True)
         f.write("\n")

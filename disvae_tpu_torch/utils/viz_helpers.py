@@ -9,10 +9,11 @@ with pandas; this one needs none of them:
 * PNG: 8-bit RGB (or grey) rows, filter byte 0, one zlib IDAT chunk.
 * GIF: GIF89a with a NETSCAPE2.0 loop block, a frame delay of
   round(100 / fps) centiseconds and one local colour table per frame.
-  The LZW stream keeps every code 9 bits wide: a clear code before every
-  254 literals keeps the decoder's dictionary below 512 entries, so the
-  codes are plain literals and the encoder is vectorised in numpy.
-  `read_gif` reads that encoding back, and only that one.
+  The pixels are LZW-compressed as the GIF format defines it: codes grow
+  from 9 to 12 bits as the dictionary fills, and a clear code resets it
+  when it holds 4,096 codes. `read_gif` decodes any such GIF (global or
+  local tables, any code size, frames smaller than the screen drawn over
+  the previous one), as Pillow and imageio write them too.
 * Palette: a frame with at most 256 distinct colours (every grey frame)
   gets them exactly; any other frame is mapped to the nearest colour of a
   fixed uniform 6 x 7 x 6 RGB palette, whose levels are at most 25 apart
@@ -37,7 +38,7 @@ LABEL_MARGIN = 100
 GIF_MAX_ERR = 25
 
 _LEVELS = (6, 7, 6)  # uniform palette levels per channel (R, G, B)
-_LITERALS_PER_CLEAR = 254
+_LZW_CODES = 4096  # GIF LZW codes are at most 12 bits wide
 
 
 def get_samples(dataset, num_samples, idcs=None):
@@ -177,23 +178,92 @@ def _quantize(frame):
     return idx.astype(np.uint8).reshape(h, w), palette
 
 
-def _lzw_literals(indices):
+def _lzw_encode(indices):
     """GIF LZW stream (minimum code size 8) of uint8 indices, as
-    sub-blocks: every code is a 9-bit literal, with a clear code before
-    every `_LITERALS_PER_CLEAR` of them and the end code last."""
-    lit = indices.ravel().astype(np.uint16)
-    codes = np.insert(lit, np.arange(0, lit.size, _LITERALS_PER_CLEAR), 256)
-    codes = np.append(codes, np.uint16(257))
-    bits = ((codes[:, None] >> np.arange(9, dtype=np.uint16)) & 1)
-    data = np.packbits(bits.astype(np.uint8).ravel(), bitorder="little")
-    n_full = data.size // 255
-    blocks = np.concatenate([np.full((n_full, 1), 255, np.uint8),
-                             data[:n_full * 255].reshape(n_full, 255)],
-                            axis=1).tobytes()
-    tail = data[n_full * 255:]
-    if tail.size:
-        blocks += bytes([tail.size]) + tail.tobytes()
-    return blocks + b"\x00"
+    sub-blocks: a clear code first, codes widening from 9 to 12 bits as
+    the dictionary grows, a clear code whenever it holds `_LZW_CODES`
+    codes, and the end code last."""
+    data = indices.ravel().tobytes()
+    out = bytearray()
+    table = {}
+    acc, n_bits, width, next_code = 256, 9, 9, 258  # the clear code
+    prefix = data[0]
+    for c in data[1:]:
+        key = prefix << 8 | c
+        code = table.get(key)
+        if code is not None:
+            prefix = code
+            continue
+        acc |= prefix << n_bits
+        n_bits += width
+        if next_code == _LZW_CODES:
+            acc |= 256 << n_bits
+            n_bits += width
+            table.clear()
+            width, next_code = 9, 258
+        else:
+            table[key] = next_code
+            # the decoder adds this code one code later; both widen here
+            if next_code == 1 << width:
+                width += 1
+            next_code += 1
+        while n_bits >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            n_bits -= 8
+        prefix = c
+    acc |= prefix << n_bits  # the last code
+    n_bits += width
+    # the decoder adds an entry for the last code too, and may widen before
+    # it reads the end code
+    if next_code == 1 << width and width < 12:
+        width += 1
+    acc |= 257 << n_bits
+    n_bits += width
+    out += acc.to_bytes((n_bits + 7) // 8, "little")
+    blocks = bytearray()
+    for i in range(0, len(out), 255):
+        chunk = out[i:i + 255]
+        blocks.append(len(chunk))
+        blocks += chunk
+    return bytes(blocks) + b"\x00"
+
+
+def _lzw_decode(data, min_size):
+    """The indices of one GIF LZW stream of minimum code size `min_size`
+    (the sub-blocks' bytes joined), up to its end code."""
+    clear = 1 << min_size
+    data = bytes(data) + b"\x00\x00\x00"
+    out = bytearray()
+    table = []
+    pos, width, prev = 0, min_size + 1, None
+    end_bits = (len(data) - 3) * 8
+    while pos + width <= end_bits:
+        code = (int.from_bytes(data[pos >> 3:(pos >> 3) + 3], "little")
+                >> (pos & 7)) & ((1 << width) - 1)
+        pos += width
+        if code == clear:
+            table = [bytes([i]) for i in range(clear)] + [b"", b""]
+            width, prev = min_size + 1, None
+            continue
+        if code == clear + 1:
+            return out
+        if not table:
+            raise ValueError("LZW stream without a leading clear code")
+        if code < len(table):
+            entry = table[code]
+            if prev is not None and len(table) < _LZW_CODES:
+                table.append(prev + entry[:1])
+        elif code == len(table) and prev is not None:
+            entry = prev + prev[:1]
+            table.append(entry)
+        else:
+            raise ValueError("LZW code {} beyond the dictionary".format(code))
+        if len(table) == 1 << width and width < 12:
+            width += 1
+        out += entry
+        prev = entry
+    return out
 
 
 def _as_rgb(frame):
@@ -225,7 +295,7 @@ def mimsave(filename, images, fps=FPS_GIF):
                     + b"\x00\x00")
             f.write(b"\x2c" + struct.pack("<HHHHB", 0, 0, w, h, 0x87))
             f.write(palette.tobytes())
-            f.write(b"\x08" + _lzw_literals(indices))
+            f.write(b"\x08" + _lzw_encode(indices))
         f.write(b"\x3b")
 
 
@@ -238,44 +308,70 @@ def _sub_blocks(buf, pos):
 
 
 def read_gif(filename):
-    """Decode a GIF written by `mimsave` into a list of uint8 (H, W, 3)
-    frames. Returns (frames, delays in centiseconds, loop count or None).
-    Only that encoding is read (full-size frames with a 256-colour local
-    table, 9-bit literal LZW codes); any other GIF raises ValueError."""
+    """Decode a GIF into a list of uint8 (H, W, 3) frames. Returns (frames,
+    delays in centiseconds, loop count or None). Each frame is drawn over
+    the previous one (disposal 0 or 1; a transparent index keeps what is
+    under it); the other disposals raise ValueError."""
     with open(filename, "rb") as f:
         buf = f.read()
+    if buf[:6] not in (b"GIF87a", b"GIF89a"):
+        raise ValueError("{} is not a GIF".format(filename))
     w, h, flags = struct.unpack("<HHB", buf[6:11])
-    if buf[:6] != b"GIF89a" or flags & 0x80:
-        raise ValueError("{} is not a GIF of mimsave's encoding".format(
-            filename))
-    pos = 13
-    frames, delays, loop, delay = [], [], None, 0
+    pos, table = 13, None
+    if flags & 0x80:
+        n = 3 << ((flags & 7) + 1)
+        table = np.frombuffer(buf[pos:pos + n], np.uint8).reshape(-1, 3)
+        pos += n
+    canvas = np.zeros((h, w, 3), np.uint8)
+    frames, delays, loop = [], [], None
+    delay, transparent = 0, None
     while buf[pos] != 0x3B:
         if buf[pos] == 0x21:
             label = buf[pos + 1]
             body, pos = _sub_blocks(buf, pos + 2)
             if label == 0xF9:
+                if (body[0] >> 2) & 7 > 1:
+                    raise ValueError("{}: a frame disposal other than 'keep'"
+                                     .format(filename))
                 delay = struct.unpack("<H", body[1:3])[0]
+                transparent = body[3] if body[0] & 1 else None
             elif label == 0xFF and body[:11] == b"NETSCAPE2.0":
                 loop = struct.unpack("<H", body[12:14])[0]
             continue
-        header = struct.unpack("<BHHHHB", buf[pos:pos + 10])
-        if header != (0x2C, 0, 0, w, h, 0x87) or buf[pos + 778] != 8:
-            raise ValueError("{}: a frame not of mimsave's encoding".format(
-                filename))
-        table = np.frombuffer(buf[pos + 10:pos + 778], np.uint8)
-        data, pos = _sub_blocks(buf, pos + 779)
-        bits = np.unpackbits(np.frombuffer(data, np.uint8), bitorder="little")
-        codes = bits[:bits.size // 9 * 9].reshape(-1, 9).astype(np.uint16) \
-            @ (np.uint16(1) << np.arange(9, dtype=np.uint16))
-        codes = codes[:np.argmax(codes == 257)]  # up to the end code
-        idx = codes[codes != 256]  # clear codes dropped
-        if idx.size != w * h or (idx > 255).any():
-            raise ValueError("{}: a frame not of mimsave's encoding".format(
-                filename))
-        frames.append(table.reshape(256, 3)[idx.reshape(h, w)])
+        if buf[pos] != 0x2C:
+            raise ValueError("{}: unknown block 0x{:02x}".format(filename,
+                                                                 buf[pos]))
+        x, y, fw, fh, fflags = struct.unpack("<HHHHB", buf[pos + 1:pos + 10])
+        pos += 10
+        palette = table
+        if fflags & 0x80:
+            n = 3 << ((fflags & 7) + 1)
+            palette = np.frombuffer(buf[pos:pos + n], np.uint8).reshape(-1, 3)
+            pos += n
+        if palette is None or x + fw > w or y + fh > h:
+            raise ValueError("{}: a frame without colours or beyond the "
+                             "screen".format(filename))
+        data, end = _sub_blocks(buf, pos + 1)
+        idx = np.frombuffer(_lzw_decode(data, buf[pos]), np.uint8)
+        pos = end
+        if idx.size != fw * fh:
+            raise ValueError("{}: a frame of {} indices for {} x {} pixels"
+                             .format(filename, idx.size, fw, fh))
+        rows = np.arange(fh)
+        if fflags & 0x40:  # interlaced: rows 0::8, 4::8, 2::4, 1::2
+            rows = np.concatenate([rows[0::8], rows[4::8], rows[2::4],
+                                   rows[1::2]])
+        idx = idx.reshape(fh, fw)[np.argsort(rows)]
+        keep = (idx == transparent if transparent is not None
+                else np.zeros(idx.shape, bool))
+        if (idx[~keep] >= len(palette)).any():
+            raise ValueError("{}: an index beyond the frame's colour table"
+                             .format(filename))
+        region = canvas[y:y + fh, x:x + fw]
+        region[~keep] = palette[idx[~keep]]
+        frames.append(canvas.copy())
         delays.append(delay)
-        delay = 0
+        delay, transparent = 0, None
     return frames, delays, loop
 
 

@@ -18,7 +18,16 @@ do. Needs the full dsprites lattice cache (tools/fabricate_dsprites.py).
       each logged term over the last 500 steps of each run, and the
       largest relative parameter difference between the two shared runs.
 
-Both write a JSON record with --out.
+  python tests/evidence_witness.py init DIR
+      Write the init the JAX CLI trains btcvae_dsprites from at -s 1234:
+      init_specific_model("Burgess", (1, 64, 64), 10) at
+      jax.random.split(jax.random.PRNGKey(1234), 3)[0], saved with the
+      JAX package's save_model (model.npz, specs.json; the specs also name
+      the key, the JAX version and its threefry mode). The port's
+      evidence run starts from it with `--init-from DIR`; the committed
+      copy is tests/data/jax_init_btcvae_dsprites_s1234/.
+
+score and trajectory write a JSON record with --out.
 """
 
 import argparse
@@ -157,18 +166,56 @@ def trajectory(args):
     return record
 
 
+INIT_SEED = 1234
+
+
+def init_weights(seed=INIT_SEED):
+    """(model, params, metadata) of the JAX CLI's init at `-s seed` for a
+    Burgess 64x64x1 latent-10 model (disvae_tpu/cli.py: the first of three
+    keys split from PRNGKey(seed))."""
+    from disvae_tpu.models.vae import init_specific_model
+    init_key = jax.random.split(jax.random.PRNGKey(seed), 3)[0]
+    model, params = init_specific_model("Burgess", (1, 64, 64), D,
+                                        key=init_key)
+    metadata = dict(img_size=[1, 64, 64], latent_dim=D,
+                    model_type="Burgess",
+                    init_key="jax.random.split(jax.random.PRNGKey({}), 3)[0]"
+                    .format(seed),
+                    jax_version=jax.__version__,
+                    jax_threefry_partitionable=bool(
+                        jax.config.jax_threefry_partitionable))
+    return model, params, metadata
+
+
+def init(args):
+    from disvae_tpu.utils.modelIO import save_model
+    model, params, metadata = init_weights()
+    os.makedirs(args.path, exist_ok=True)
+    save_model(model, params, args.path, metadata=metadata)
+    print("wrote {} ({} parameters)".format(args.path, sum(
+        int(np.prod(x.shape)) for x in jax.tree_util.tree_leaves(params))))
+    return metadata
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("what", choices=["score", "trajectory"])
+    parser.add_argument("what", choices=["score", "trajectory", "init"])
     parser.add_argument("path_or_steps")
-    parser.add_argument("--root", required=True,
-                        help="directory of the dsprites lattice cache")
+    parser.add_argument("--root",
+                        help="directory of the dsprites lattice cache "
+                        "(score and trajectory)")
     parser.add_argument("--seed", type=int, default=1234,
                         help="the metric sample draws' seed (score)")
     parser.add_argument("--scratch", default=".",
                         help="where the evaluator writes its helpers")
     parser.add_argument("--out", help="JSON record")
     args = parser.parse_args(argv)
+    if args.what == "init":
+        args.path = args.path_or_steps
+        init(args)
+        return
+    if args.root is None:
+        parser.error("{} needs --root".format(args.what))
     if args.what == "score":
         args.path = args.path_or_steps
         record = score(args)

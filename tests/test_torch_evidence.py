@@ -1,12 +1,15 @@
 """`python -m disvae_tpu_torch.evidence` on the CPU: all four legs through
 the port's CLIs on a small fabricated dsprites lattice, the snapshot they
-leave, and a failing leg.
+leave, a failing leg, and `--init-from`; and the port's committed H100
+evidence set (artifacts/btcvae_dsprites_h100/) against the JAX run's
+gate.
 
 The lattice is (shape, scale, orientation, posX, posY) = (3, 2, 2, 4, 4),
 192 images, with the dsprites latents columns and the file that names its
 factor sizes, so that the port's DSprites scores it on them.
 """
 
+import hashlib
 import json
 import os
 import subprocess
@@ -43,12 +46,14 @@ def _fabricate(root, lat_sizes=LAT_SIZES):
         json.dump(list(lat_sizes), f)
 
 
-def _evidence(tmp_path, *argv):
+def _evidence(tmp_path, *argv, cwd=None):
+    """The evidence CLI on the caches under tmp_path/data, run in `cwd`
+    (default tmp_path)."""
     env = dict(os.environ, DISVAE_DATA_ROOT=str(tmp_path / "data"),
                PYTHONPATH=REPO, OMP_NUM_THREADS="2")
     return subprocess.run(
         [sys.executable, "-m", "disvae_tpu_torch.evidence"] + list(argv),
-        cwd=str(tmp_path), env=env, capture_output=True, text=True,
+        cwd=str(cwd or tmp_path), env=env, capture_output=True, text=True,
         timeout=600)
 
 
@@ -113,8 +118,49 @@ def test_evidence_cli_on_the_cpu(tmp_path):
     assert "model.pt" in manifest and "metrics.log" in manifest
     device = json.loads((out / "device.json").read_text())
     assert device["device"] == "cpu" and device["nvidia_smi"] is None
+    assert device["seed"] == 3 and device["init_from"] is None
     assert sorted(device["leg_seconds"]) == sorted(LEGS)
     assert all(v > 0 for v in device["leg_seconds"].values())
+
+
+def test_init_from_the_seeds_own_init_is_the_plain_run(tmp_path):
+    """`--init-from` a directory holding the init the CLI draws at -s 3
+    trains the plain -s 3 run bit for bit (2 epochs at b16 on the 192
+    images): train_losses.log, model.pt and train_state.pt are the same
+    bytes, and device.json names the directory and its weights' SHA-256."""
+    from disvae_tpu_torch.models.vae import init_specific_model
+    from disvae_tpu_torch.utils.helpers import derive_seeds
+    from disvae_tpu_torch.utils.modelIO import save_model
+    _fabricate(str(tmp_path / "data" / "dsprites"))
+    init_dir = tmp_path / "seed3_init"
+    os.makedirs(init_dir)
+    save_model(init_specific_model(
+        "Burgess", (1, 64, 64), 10,
+        generator=torch.Generator().manual_seed(derive_seeds(3, 2)[0])),
+        str(init_dir))
+    runs = {}
+    for kind, extra in (("plain", []), ("init", ["--init-from",
+                                                 str(init_dir)])):
+        cwd = tmp_path / kind
+        os.makedirs(cwd)
+        proc = _evidence(tmp_path, "tiny", "custom", "-s", "3", "--out",
+                         str(cwd / "evidence"), "--no-cuda",
+                         "--skip-metrics", "--train-flags",
+                         "-d dsprites -l btcvae -e 2 -b 16", *extra,
+                         cwd=cwd)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        train_argv = proc.stderr.split("== train: ")[1].split("\n")[0]
+        assert ("--resume" in train_argv) == bool(extra)
+        runs[kind] = cwd
+    for f in ("train_losses.log", "model.pt", "train_state.pt"):
+        plain, init = [(runs[k] / "results" / "tiny" / f).read_bytes()
+                       for k in ("plain", "init")]
+        assert plain == init, f
+    device = json.loads((runs["init"] / "evidence" / "device.json")
+                        .read_text())
+    digest = hashlib.sha256((init_dir / "model.pt").read_bytes()).hexdigest()
+    assert device["init_from"] == {"dir": str(init_dir),
+                                   "weights": "model.pt", "sha256": digest}
 
 
 @pytest.mark.parametrize("leg", ["train", "metrics-reference-faithful"])
@@ -136,3 +182,44 @@ def test_a_failing_leg_raises(tmp_path, leg):
     assert "LegFailed: leg {} exited with".format(leg) in proc.stderr
     assert "Traceback" in proc.stderr.split("LegFailed")[-1]
     assert not os.path.exists(tmp_path / "evidence" / "device.json")
+
+
+H100_EVIDENCE = os.path.join(REPO, "artifacts", "btcvae_dsprites_h100")
+JAX_INIT = os.path.join(REPO, "tests", "data",
+                        "jax_init_btcvae_dsprites_s1234")
+
+
+def _log_rows(path):
+    with open(path) as f:
+        return [line.strip().split(",") for line in f.readlines()[1:]]
+
+
+def test_h100_evidence_set_meets_the_jax_runs_gate():
+    """The port's declared btcvae_dsprites run on the H100, trained from
+    the JAX run's own init, against the JAX run's gate: corrected MIG >
+    0.25 and AAM > 0.4, and the last epoch's logged loss within 5% of the
+    JAX run's; its specs (btcvae, dsprites, b64, 30 epochs, `highest`,
+    seed 1234), 30 epochs logged, and device.json naming the committed
+    init (by SHA-256) and an H100."""
+    metrics = json.loads(open(os.path.join(
+        H100_EVIDENCE, "metrics.corrected.log")).read())
+    assert metrics["MIG"] > 0.25 and metrics["AAM"] > 0.4, metrics
+    rows = _log_rows(os.path.join(H100_EVIDENCE, "train_losses.log"))
+    ref = _log_rows(os.path.join(JAX_EVIDENCE, "train_losses.log"))
+    assert sorted({int(r[0]) for r in rows}) == list(range(30))
+    last = [float(v) for e, k, v in rows if e == "29" and k == "loss"]
+    ref_last = [float(v) for e, k, v in ref if e == "29" and k == "loss"]
+    assert abs(last[0] - ref_last[0]) <= 0.05 * abs(ref_last[0])
+    spec = json.loads(open(os.path.join(H100_EVIDENCE,
+                                        "specs.json")).read())
+    assert (spec["loss"], spec["dataset"], spec["batch_size"],
+            spec["epochs"], spec["precision"], spec["seed"]) \
+        == ("btcvae", "dsprites", 64, 30, "highest", 1234)
+    device = json.loads(open(os.path.join(H100_EVIDENCE,
+                                          "device.json")).read())
+    with open(os.path.join(JAX_INIT, "model.npz"), "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()
+    assert device["init_from"]["sha256"] == digest
+    assert os.path.normpath(device["init_from"]["dir"]) \
+        == os.path.join("tests", "data", "jax_init_btcvae_dsprites_s1234")
+    assert "H100" in device["nvidia_smi"] and device["seed"] == 1234

@@ -77,9 +77,10 @@ def test_log_qz_kernel_edge_inputs(cuda, name):
 
 
 # (n, h, cin, cout): odd Cout, tiny and ragged spatial sizes, batches that
-# leave a ragged last chunk of positions, and the 32^2 datasets' Cout = 1
+# leave a ragged last chunk of positions, the 64^2 and 32^2 grey datasets'
+# Cout = 1, and the b64 mnist/fashion layer
 CONVT_SHAPES = [(6, 4, 8, 5), (3, 2, 2, 2), (37, 16, 32, 3), (5, 32, 32, 1),
-                (7, 9, 32, 3)]
+                (7, 9, 32, 3), (64, 16, 32, 1)]
 
 
 def _rel(ref, got):

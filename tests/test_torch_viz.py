@@ -11,6 +11,7 @@ Pillow's quantiser, so the two packages' animations are compared through
 their frames before quantisation.
 """
 
+import importlib.util
 import os
 import shutil
 import subprocess
@@ -176,16 +177,77 @@ def test_gif_palette_error_bound_is_tight():
     assert np.abs(palette[idx].astype(int) - frame).max() == PVH.GIF_MAX_ERR
 
 
-def test_gif_reader_refuses_other_encodings(tmp_path):
-    """The port's reader reads only `mimsave`'s encoding: a GIF written by
-    imageio/Pillow (dictionary LZW codes) raises instead of decoding
-    wrongly."""
+def test_gif_reader_decodes_pil_lzw(tmp_path):
+    """The port's reader decodes a GIF that imageio/Pillow wrote (adaptive
+    palettes, a transparent index, interlaced rows, Pillow's LZW codes)
+    to Pillow's own frames exactly, with its delays and loop."""
     rng = np.random.RandomState(3)
     frames = [(rng.rand(40, 37, 3) * 255).astype(np.uint8) for _ in range(2)]
+    frames += [(rng.randint(0, 4, (40, 37, 1)) * 60).repeat(3, 2).astype(
+        np.uint8) for _ in range(2)]
     path = str(tmp_path / "p.gif")
-    imageio.mimsave(path, frames, duration=80)
-    with pytest.raises(ValueError, match="mimsave's encoding"):
-        PVH.read_gif(path)
+    imageio.mimsave(path, frames, duration=80, loop=0)
+    want, _ = _read_frames(path)
+    got, delays, loop = PVH.read_gif(path)
+    assert len(got) == len(want) == 4
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    assert delays == [8] * 4 and loop == 0
+
+
+def _grey_traversal(n_frames=15, rows=10, cols=8, px=32, seed=0):
+    """A seeded grey traversal: a grid of blobs, each row's moving along
+    its own path over the frames."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[:px, :px]
+    start, step = rng.rand(rows, cols, 2) * px, rng.randn(rows, 2)
+    frames = []
+    for t in range(n_frames):
+        centre = start + step[:, None] * t
+        d2 = ((yy - centre[..., 0, None, None]) ** 2
+              + (xx - centre[..., 1, None, None]) ** 2)
+        cells = 255 * np.exp(-d2 / 40.0)  # (rows, cols, px, px)
+        frames.append(cells.transpose(0, 2, 1, 3).reshape(
+            rows * px, cols * px).astype(np.uint8))
+    return frames
+
+
+def test_gif_writer_compresses_like_pil(tmp_path):
+    """The port's LZW: a seeded 15-frame grey traversal takes at most 1.5x
+    the bytes Pillow writes for the same frames, and Pillow decodes it to
+    those frames exactly."""
+    frames = _grey_traversal()
+    path, pil_path = str(tmp_path / "port.gif"), str(tmp_path / "pil.gif")
+    PVH.mimsave(path, frames)
+    Image.fromarray(frames[0]).save(
+        pil_path, save_all=True, duration=80, loop=0,
+        append_images=[Image.fromarray(f) for f in frames[1:]])
+    ratio = os.path.getsize(path) / os.path.getsize(pil_path)
+    assert ratio <= 1.5, ratio
+    got, info = _read_frames(path)
+    assert len(got) == 15 and info["duration"] == 80 and info["loop"] == 0
+    assert all(np.array_equal(g, np.repeat(f[..., None], 3, 2))
+               for g, f in zip(got, frames))
+
+
+@pytest.mark.parametrize("n", [8445, 19450, 28664])
+def test_lzw_end_code_after_a_widening(n):
+    """Streams whose last code fills the dictionary to 1,024, 512 and 2,048
+    entries (in the 3rd, 6th and 8th dictionary after the clears), so the
+    decoder widens before it reads the end code, and the stream ends on a
+    byte boundary: both of the port's readers decode them exactly, up to
+    the end code."""
+    # no pair of indices repeats, so every code is one index: each
+    # dictionary takes 3,839 codes before its clear
+    data = np.concatenate([np.arange(256) * s % 256
+                           for s in range(1, 256, 2)])[:n].astype(np.uint8)
+    blocks = PVH._lzw_encode(data)
+    stream, _ = PVH._sub_blocks(blocks, 0)
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert bytes(smoke._lzw_decode(stream)) == data.tobytes()
+    assert bytes(PVH._lzw_decode(stream, 8)) == data.tobytes()
 
 
 def test_plot_grid_gifs_matches_jax_geometry(tmp_path):
