@@ -43,7 +43,8 @@ Phases (any failure raises and exits non-zero; there is no CPU carry-on):
    path's shapes: x (256, 32, 32, 32) with dy (256, 3, 64, 64) and
    (128, ...), Cout = 1 at (256, 32, 16, 16), phase 17's x (64, 32, 16,
    16) with dy (64, 1, 32, 32) and x (64, 32, 32, 32) with dy (64, 1, 64,
-   64), and (6, 8, 4, 4) -> Cout 5.
+   64), the b64 btcvae_celeba flagship's x (64, 32, 32, 32) with dy (64,
+   3, 64, 64), and (6, 8, 4, 4) -> Cout 5.
    float32: max |d| / max |ref| <= 1e-5; bf16 operands: <= 1e-3 against
    the plain version on the same operands (float32 sums) and <= 3e-2
    against cuDNN's float32 backward. Times at b256 celeba in bf16, L2-cold
@@ -53,7 +54,8 @@ Phases (any failure raises and exits non-zero; there is no CPU carry-on):
    Each kernel's bound (bytes or operations over the H100's peaks) and its
    L2-cold ratio to its cuDNN call. K2's floor, a flat pass that reads dy
    and writes dx once in 16-byte accesses, and K2's share of it; K2's
-   times at the FactorVAE half batch (128, 32, 32, 3) too.
+   times at the FactorVAE half batch (128, 32, 32, 3) too; all of the
+   b256 times, bounds and floors again at the b64 flagship's shape.
 5. Eval path: the full 737,280-image dsprites lattice fabricated with
    tools/fabricate_dsprites.py, a seeded-init Burgess 64x64x1 latent-10
    checkpoint written with the port's save_model, then the port's CLI
@@ -176,6 +178,17 @@ Phases (any failure raises and exits non-zero; there is no CPU carry-on):
    beside the JAX run's, with the gap (not gated); the phase's seconds
    with fabrication and each run apart. Every line carries the card's
    name and power limit.
+18. The flagship's evidence CLI (after phase 17, this checkout's
+   package only): `python -m disvae_tpu_torch.evidence <name> custom
+   --skip-metrics --profile-epoch 0 --final-convt kernels` and the same
+   with `cudnn`, the two at once, with the settings of the JAX flagship
+   artifacts/btcvae_celeba_tpu/ (b64, `default`, no gif) for 1 epoch on
+   phase 7's celeba subset (401 steps). From each device.json: the card,
+   the resident feed and a replayed graph, and K1's and K2's executions
+   (launches outside a capture plus one per replayed step) equal to the
+   steps and to the profiled epoch's device events with `kernels`, all
+   zero with `cudnn`; the two runs' specs equal but for the name; finite
+   test losses.
 
 Its last two lines are JSON: the kernels' record (per kernel `ms`, the
 L2-cold time, `warm_ms`, `plain_ms`, `bound_ms`/`bound_us`, `bound_by`,
@@ -183,10 +196,13 @@ L2-cold time, `warm_ms`, `plain_ms`, `bound_ms`/`bound_us`, `bound_by`,
 null; `launches`, the wrapper's count in the main path's run; for K1/K2
 `graph_replays` and `device_launches`, phase 7's replays and the
 profiler's count of the kernel's executions, `zoo`, phase 17's wrapper
-launches, the profiler's executions, replays and steps per run, and
-`cudnn_dw_ms`/`cudnn_dx_ms`; for K2 `flat_us`, its floor, and
-`b128_ms`/`b128_warm_ms`; for K3 `shapes`, the per-shape times,
-`eval_sum_ms`/`eval_sum_warm_ms` and `entropy_seconds`), then
+launches, the profiler's executions, replays and steps per run,
+`evidence`, phase 18's launches, captured launches, executions, steps
+and profiled device executions, `b64_celeba`, the times, bound and
+library call at the flagship's shape, and `cudnn_dw_ms`/`cudnn_dx_ms`;
+for K2 `flat_us`, its floor, and `b128_ms`/`b128_warm_ms`; for K3
+`shapes`, the per-shape times, `eval_sum_ms`/`eval_sum_warm_ms` and
+`entropy_seconds`), then
 {"ok": true, "device": {...}}. Scratch data lives under build/ and is
 removed at the end.
 """
@@ -221,9 +237,12 @@ ATOL = 1e-4  # log-density bound of tests/test_metrics.py (kernel vs scan)
 CONVT_F32, CONVT_BF16, CONVT_VS_CUDNN = 1e-5, 1e-3, 3e-2
 # (n, h, cin, cout): the path's b256 celeba layer, the FactorVAE half batch,
 # the 32^2 datasets' Cout = 1, phase 17's b64 mnist/fashion and chairs
-# layers, and an odd shape
+# layers, the b64 btcvae_celeba flagship's layer (phase 18), and an odd
+# shape
 CONVT_SHAPES = [(256, 32, 32, 3), (128, 32, 32, 3), (256, 16, 32, 1),
-                (64, 16, 32, 1), (64, 32, 32, 1), (6, 4, 8, 5)]
+                (64, 16, 32, 1), (64, 32, 32, 1), (64, 32, 32, 3),
+                (6, 4, 8, 5)]
+FLAGSHIP_CONVT = (64, 32, 32, 3)
 N_CELEBA = 25637  # 100 batches of 256 and a ragged tail of 37
 N_DSPRITES = 737280  # the full factor lattice
 EXPORT_ATOL = 1e-5  # exported program vs ServingModel, float32 both
@@ -267,7 +286,8 @@ ZOO_EPOCHS = 2
 # the zoo losses' own coefficients, by their specs.json keys (the CLI's
 # flags with "-" for "_")
 LOSS_COEFS = {"VAE": (), "betaH": ("betaH_B",),
-              "betaB": ("betaB_initC", "betaB_finC", "betaB_G")}
+              "betaB": ("betaB_initC", "betaB_finC", "betaB_G"),
+              "btcvae": ("btcvae_A", "btcvae_B", "btcvae_G")}
 # the fabricators of phase 17's datasets: (script, flags)
 ZOO_DATA = {"mnist": ("fabricate_mnist.py", ["--dataset", "mnist"]),
             "fashion": ("fabricate_mnist.py", ["--dataset", "fashion"]),
@@ -770,12 +790,12 @@ def _device_ms(fn, calls=10):
     return sum(ms for _, ms, _ in top) / calls, top
 
 
-def _convt_times(C, x32, w, dy32, probe, flat):
+def _convt_times(C, x32, w, dy32, probe, flat, label="b256 celeba"):
     """K1, K2, their plain versions and cuDNN's single-gradient calls at
-    b256 celeba with bf16 operands: L2-cold medians (CUDA events) and warm
-    device times (profiler). cuDNN runs under the `default` policy that the
-    hook replaces it in. K2's floor: `probe.flat_pass` on `flat`, the
-    floor kernel's library, reads dy and writes dx once in 16-byte
+    `label`'s shape with bf16 operands: L2-cold medians (CUDA events) and
+    warm device times (profiler). cuDNN runs under the `default` policy
+    that the hook replaces it in. K2's floor: `probe.flat_pass` on `flat`,
+    the floor kernel's library, reads dy and writes dx once in 16-byte
     accesses."""
     from disvae_tpu_torch.ops.precision import configure
     x, dy, wb = x32.bfloat16(), dy32.bfloat16(), w.bfloat16()
@@ -812,7 +832,8 @@ def _convt_times(C, x32, w, dy32, probe, flat):
                            10),
              "K2": time_ms(lambda: C.convt3_dx_plain(dy, w, torch.bfloat16),
                            10)}
-    log("K1/K2 times at b256 celeba, bf16, ms (L2-cold / warm device): "
+    log("K1/K2 times at {}, bf16, ms (L2-cold / warm device): ".format(
+        label)
         + ", ".join("{} {:.4f} / {:.4f}".format(k, cold[k], warm[k])
                     for k in fns)
         + "; plain K1 {:.4f}, plain K2 {:.4f}".format(plain["K1"],
@@ -872,7 +893,8 @@ def _k2_times(C, w, dy32):
 def phase_convt_kernels(C, probe, flat):
     """K1/K2 against their plain versions and cuDNN at the path's shapes.
     Returns the kernels' records (b256 celeba times in bf16, K2's also at
-    the FactorVAE half batch, b128). `probe` is _probe(), `flat` the path
+    the FactorVAE half batch, b128, and both at the b64 flagship's shape
+    under `b64_celeba`). `probe` is _probe(), `flat` the path
     of its floor kernel's library."""
     flat = ctypes.CDLL(flat)
     dev = torch.device("cuda")
@@ -921,6 +943,11 @@ def phase_convt_kernels(C, probe, flat):
             (n, h, cin, cout), "; ".join(errs)))
         if record is None:  # b256 celeba, bf16 operands as on the path
             record = _convt_times(C, x32, w, dy32, probe, flat)
+        elif (n, h, cin, cout) == FLAGSHIP_CONVT:
+            b64 = _convt_times(C, x32, w, dy32, probe, flat,
+                               "the b64 btcvae_celeba flagship")
+            for k in ("convt3_dw", "convt3_dx"):
+                record[k]["b64_celeba"] = b64[k]
         elif (n, h, cin, cout) == (128, 32, 32, 3):
             cold, warm = _k2_times(C, w, dy32)
             record["convt3_dx"].update(b128_ms=cold, b128_warm_ms=warm)
@@ -2068,6 +2095,89 @@ def _native_gathers():
     return (native.gather_u8_f32, native.gather_u8_mul, native.gather_u8)
 
 
+def phase_evidence(scratch, smi, package_root):
+    """Phase 18: the flagship's evidence CLI, `python -m
+    disvae_tpu_torch.evidence ... --skip-metrics --profile-epoch 0`, with
+    the settings of the JAX flagship artifacts/btcvae_celeba_tpu/ (b64,
+    `default`, no gif) for 1 epoch on phase 7's celeba subset, once with
+    `--final-convt kernels` and once with `cudnn`, the two at once. Checks
+    device.json: the option, the card, the resident feed and the graph,
+    and K1's and K2's executions (the wrappers' launches less the captured
+    ones, plus one per replayed step) equal to the optimizer steps and to
+    their executions among the profiled epoch's device events with the
+    kernels, and zero of each with cudnn; the specs equal but for the
+    name; finite test losses. Returns the kernels run's train_leg
+    record."""
+    t0 = time.perf_counter()
+    flags = zoo_flags("-", "btcvae_celeba_tpu", False)[1:] + ["-e", "1"]
+    env = dict(os.environ, PYTHONPATH=package_root)
+    procs = {}
+    for final_convt in ("kernels", "cudnn"):
+        name = "chip_smoke_evidence_" + final_convt
+        procs[final_convt] = subprocess.Popen(
+            [sys.executable, "-m", "disvae_tpu_torch.evidence", name,
+             "custom", "-s", str(SEED), "--skip-metrics", "--final-convt",
+             final_convt, "--profile-epoch", "0", "--out",
+             os.path.join(scratch, name), "--train-flags",
+             " ".join(flags)], cwd=scratch, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    outs = {k: p.communicate()[0] for k, p in procs.items()}
+    seconds = time.perf_counter() - t0
+    bad = {k: out[-3000:] for k, out in outs.items()
+           if procs[k].returncode}
+    if bad:
+        raise AssertionError("the evidence CLI failed: {}".format(bad))
+    sets = {}
+    for final_convt in procs:
+        out = os.path.join(scratch, "chip_smoke_evidence_" + final_convt)
+        with open(os.path.join(out, "device.json")) as f:
+            device = json.load(f)
+        with open(os.path.join(out, "specs.json")) as f:
+            specs = json.load(f)
+        with open(os.path.join(out, "test_losses.log")) as f:
+            losses = json.load(f)
+        sets[final_convt] = device, specs, losses
+        leg = device["train_leg"]
+        prof = leg["profiled_epoch"] or {}
+        counts = [(leg[k]["executions"], prof.get(k))
+                  for k in ("convt3_dw", "convt3_dx")]
+        log("[{}] phase 18: evidence --final-convt {} (b64 btcvae_celeba "
+            "settings, {:,} images, 1 epoch): {} steps, resident {}, graph "
+            "{}, K1/K2 wrapper launches {} / {} ({} / {} captured), "
+            "executions {} / {} (profiled epoch: {} / {} device events of "
+            "{} steps), convt3_bwd calls {}, {:.0f} images/sec; legs {}; "
+            "test loss {:.4f}".format(
+                smi, final_convt, N_CELEBA, leg["steps"], leg["resident"],
+                leg["graph"], leg["convt3_dw"]["launches"],
+                leg["convt3_dx"]["launches"], leg["convt3_dw"]["captured"],
+                leg["convt3_dx"]["captured"], *[c[0] for c in counts],
+                *[c[1] for c in counts], prof.get("steps"),
+                leg["convt3_bwd_calls"], leg["epoch_images_per_sec"][0],
+                {k: round(v, 1) for k, v in device["leg_seconds"].items()},
+                losses["loss"]))
+        steps = leg["steps"]
+        want = steps if final_convt == "kernels" else 0
+        if device["final_convt"] != final_convt \
+                or smi.split(",")[0] not in device["nvidia_smi"] \
+                or steps != -(-N_CELEBA // 64) or not leg["resident"] \
+                or not leg["graph"] or not leg["graph"]["replayed_steps"] \
+                or prof.get("steps") != steps \
+                or counts != [(want, want)] * 2 \
+                or leg["convt3_bwd_calls"] != (
+                    leg["convt3_dw"]["launches"] if want else 0) \
+                or not all(math.isfinite(v) for v in losses.values()):
+            raise AssertionError("phase 18, --final-convt {}: {}".format(
+                final_convt, device))
+    specs = [{k: v for k, v in sets[c][1].items() if k != "name"}
+             for c in procs]
+    if specs[0] != specs[1]:
+        raise AssertionError("phase 18: the two runs' specs differ: {}"
+                             .format(specs))
+    log("[{}] phase 18: {:.1f} s (the two runs at once)".format(smi,
+                                                                seconds))
+    return sets["kernels"][0]["train_leg"]
+
+
 def phase_native(scratch, smi, datasets, eval_run, build_seconds):
     """The native host gather: get_batch, get_batch_raw and
     get_batch_bits bitwise equal to numpy (the same methods on the numpy
@@ -2728,18 +2838,29 @@ def main(argv=None):
                             (os.path.basename(exp_dir), "dsprites")],
                   datasets)
         zoo = phase_zoo(C, scratch, smi)
+        evidence = None
         if strict:
+            evidence = phase_evidence(scratch, smi, root)
             phase_data_parallel(C, K, scratch, smi, datasets, train_stats,
                                 (exp_dir, metrics, timings))
             phase_native(scratch, smi, datasets, (exp_dir, metrics, timings),
                          native_build["seconds"])
         else:
-            log("graph, data-parallel, tensor-parallel and native-gather "
-                "phases skipped: they run this checkout's package only")
+            log("graph, evidence, data-parallel, tensor-parallel and "
+                "native-gather phases skipped: they run this checkout's "
+                "package only")
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
     convt_src = "disvae_tpu_torch/csrc/convt3_bwd.cu"
+
+    def _evidence_counts(leg, name):
+        """Phase 18's counts of one kernel in the kernels run."""
+        if leg is None:
+            return None
+        return dict(leg[name], steps=leg["steps"],
+                    device_launches=leg["profiled_epoch"][name])
+
     cudnn = {k: convt[k] for k in ("cudnn_dw_ms", "cudnn_dx_ms")}
     log(json.dumps({"kernels": [
         dict(name="log_qz", route="cuda",
@@ -2751,7 +2872,8 @@ def main(argv=None):
         dict(name="convt3_dw", route="cuda", source=convt_src,
              replaces="disvae_tpu/ops/pallas_convt_bwd.py:71",
              launches=dw_launches, graph_replays=replays,
-             device_launches=device[0], zoo={
+             device_launches=device[0],
+             evidence=_evidence_counts(evidence, "convt3_dw"), zoo={
                  name: dict(launches=r["launches"][0],
                             device_launches=r["device_launches"][0],
                             graph_replays=r["graph_replays"],
@@ -2760,7 +2882,8 @@ def main(argv=None):
         dict(name="convt3_dx", route="cuda", source=convt_src,
              replaces="disvae_tpu/ops/pallas_convt_bwd.py:108",
              launches=dx_launches, graph_replays=replays,
-             device_launches=device[1], zoo={
+             device_launches=device[1],
+             evidence=_evidence_counts(evidence, "convt3_dx"), zoo={
                  name: dict(launches=r["launches"][1],
                             device_launches=r["device_launches"][1],
                             graph_replays=r["graph_replays"],

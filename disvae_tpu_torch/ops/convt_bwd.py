@@ -13,9 +13,11 @@ transposed and flipped in space (utils/torch_compat.py).
 * `convt3_dw` / `convt3_dx` — the hand-written CUDA kernels K1 / K2 in
   `disvae_tpu_torch/csrc/convt3_bwd.cu` (its header says what bounds them
   on Hopper and what the design does about it). Each counts its launches
-  in `.launches`.
+  in `.launches`, and in `.captured` those made while the stream captures
+  a CUDA graph (they run once per replay of the graph, not at the call).
 * `convt3_bwd(x, w, dy)` -> (dx, dw, db): the plain version for CPU
   tensors, the kernels for CUDA tensors (or it raises; nothing falls back).
+  `.calls` counts its calls on either device.
   The operand dtype is x's (float32 or bfloat16, dy the same); dw and db
   come back in w's dtype, dx in x's.
 * `ConvTranspose3Final` / `conv_transpose2d_pl` — the autograd wrapper:
@@ -211,6 +213,7 @@ def convt3_dw(x, dy):
                                    n_blocks, stream)
     cuda_build.check(lib, err, "convt3_dw")
     convt3_dw.launches += 1
+    convt3_dw.captured += torch.cuda.is_current_stream_capturing()
     return dw
 
 
@@ -246,11 +249,12 @@ def convt3_dx(dy, w, out_dtype=None):
                                    n_blocks, stream)
     cuda_build.check(lib, err, "convt3_dx")
     convt3_dx.launches += 1
+    convt3_dx.captured += torch.cuda.is_current_stream_capturing()
     return dx
 
 
-convt3_dw.launches = 0
-convt3_dx.launches = 0
+convt3_dw.launches = convt3_dw.captured = 0
+convt3_dx.launches = convt3_dx.captured = 0
 
 
 def convt3_bwd(x, w, dy):
@@ -258,12 +262,16 @@ def convt3_bwd(x, w, dy):
     `convt3_bwd_plain` with x's dtype as the operand dtype; CUDA tensors
     launch K1 and K2. dx comes back in x's dtype, dw and db in w's."""
     _check(x, w, dy)
+    convt3_bwd.calls += 1
     if x.device.type == "cpu":
         return convt3_bwd_plain(x, w, dy, cdt=x.dtype)
     dw = convt3_dw(x, dy).to(w.dtype)
     dx = convt3_dx(dy, w)
     db = dy.sum(dim=(0, 2, 3), dtype=torch.float32).to(w.dtype)
     return dx, dw, db
+
+
+convt3_bwd.calls = 0
 
 
 class ConvTranspose3Final(torch.autograd.Function):

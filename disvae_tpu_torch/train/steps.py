@@ -254,7 +254,9 @@ class GraphedSuperStep:
       the last step's gradients there.
     A kernel wrapper's launch count grows where it is called: in the
     eager steps and once per step of the capture. The replays do not
-    call it; `replays` counts them.
+    call it; `replays` counts them since the last capture, and
+    `captured_steps` / `replayed_steps` count the steps captured and
+    replayed over the object's life.
     Whoever replaces the state's tensors (an optimizer's
     `load_state_dict`) calls `reset()`, and the next calls warm up and
     capture again.
@@ -262,6 +264,7 @@ class GraphedSuperStep:
 
     def __init__(self, multi, k):
         self.multi, self.k = multi, int(k)
+        self.captured_steps = self.replayed_steps = 0
         self.reset()
 
     def reset(self):
@@ -287,6 +290,7 @@ class GraphedSuperStep:
         self._idx.copy_(idx)
         self._graph.replay()
         self.replays += 1
+        self.replayed_steps += self.k
         state.step += self.k
         for p, g in self._grads:
             p.grad = g
@@ -313,6 +317,7 @@ class GraphedSuperStep:
                        if p.grad is not None]
         self._graph, self._idx, self._out = graph, static_idx, out
         self._captured = (state, data, tuple(idx.shape))
+        self.captured_steps += self.k
 
 
 def _same(key, other):

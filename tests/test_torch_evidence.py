@@ -1,8 +1,9 @@
 """`python -m disvae_tpu_torch.evidence` on the CPU: all four legs through
 the port's CLIs on a small fabricated dsprites lattice, the snapshot they
-leave, a failing leg, and `--init-from`; and the port's committed H100
-evidence set (artifacts/btcvae_dsprites_h100/) against the JAX run's
-gate.
+leave, a failing leg, `--init-from`, and `--final-convt` with its counts
+on a small fabricated celeba cache; and the port's committed H100
+evidence sets (artifacts/btcvae_dsprites_h100/, and the btcvae_celeba
+flagship's) against the JAX runs' gates.
 
 The lattice is (shape, scale, orientation, posX, posY) = (3, 2, 2, 4, 4),
 192 images, with the dsprites latents columns and the file that names its
@@ -101,8 +102,8 @@ def test_evidence_cli_on_the_cpu(tmp_path):
     assert set(os.listdir(JAX_EVIDENCE)) <= have, \
         set(os.listdir(JAX_EVIDENCE)) - have
     assert {"device.json", "legs"} <= have
-    assert sorted(os.listdir(out / "legs")) == sorted(l + ".log"
-                                                      for l in LEGS)
+    assert sorted(os.listdir(out / "legs")) == sorted(
+        [l + ".log" for l in LEGS] + ["train.json"])
     spec = json.loads((out / "specs.json").read_text())
     assert (spec["dataset"], spec["loss"], spec["epochs"],
             spec["batch_size"], spec["seed"]) == ("dsprites", "btcvae", 1,
@@ -223,3 +224,201 @@ def test_h100_evidence_set_meets_the_jax_runs_gate():
     assert os.path.normpath(device["init_from"]["dir"]) \
         == os.path.join("tests", "data", "jax_init_btcvae_dsprites_s1234")
     assert "H100" in device["nvidia_smi"] and device["seed"] == 1234
+
+
+N_CELEBA = 72  # four b16 steps and a ragged tail of 8 per epoch (the
+# viz leg draws 42 samples)
+CELEBA_FLAGS = "-d celeba -l btcvae -e 2 -b 16 --precision default"
+
+
+def _fabricate_celeba(tmp_path):
+    subprocess.run([sys.executable,
+                    os.path.join(REPO, "tools", "fabricate_celeba.py"),
+                    "--root", str(tmp_path / "data" / "celeba"), "--n",
+                    str(N_CELEBA)], check=True, capture_output=True)
+
+
+def _train_leg_argv(stderr):
+    return stderr.split("== train: ")[1].split("\n")[0].split()
+
+
+@pytest.mark.parametrize("final_convt", ["cudnn", "kernels"])
+def test_final_convt_sets_the_hook_in_the_train_leg_only(tmp_path,
+                                                         final_convt):
+    """`--final-convt kernels` runs the train leg through K1/K2's route,
+    `convt_bwd.convt3_bwd`, once per optimizer step (on the CPU its plain
+    version: no kernel launches, no graph), and `cudnn` never; the eval
+    and viz legs carry no hook. device.json records the option, the
+    steps, the counts, each epoch's images/sec and the profiled epoch
+    (epoch 1: its five steps, no device events on the CPU)."""
+    _fabricate_celeba(tmp_path)
+    out = tmp_path / "evidence"
+    proc = _evidence(tmp_path, "tiny", "custom", "-s", "5", "--out",
+                     str(out), "--no-cuda", "--skip-metrics",
+                     "--final-convt", final_convt, "--profile-epoch", "1",
+                     "--train-flags", CELEBA_FLAGS)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    train_argv = _train_leg_argv(proc.stderr)
+    assert train_argv[1:4] == ["-m", "disvae_tpu_torch.evidence",
+                               "train-leg"]
+    assert train_argv[train_argv.index("--final-convt") + 1] == final_convt
+    viz_argv = proc.stderr.split("== viz: ")[1].split("\n")[0]
+    assert "--final-convt" not in viz_argv and "evidence" not in viz_argv
+    device = json.loads((out / "device.json").read_text())
+    leg = device["train_leg"]
+    assert device["final_convt"] == leg["final_convt"] == final_convt
+    assert leg == json.loads((out / "legs" / "train.json").read_text())
+    steps = 2 * -(-N_CELEBA // 16)
+    assert leg["steps"] == steps and leg["resident"] is True
+    assert leg["graph"] is None  # the graph is the card's
+    assert leg["convt3_bwd_calls"] == (steps if final_convt == "kernels"
+                                       else 0)
+    for k in ("convt3_dw", "convt3_dx"):
+        assert leg[k] == {"launches": 0, "captured": 0, "executions": 0}
+    assert len(leg["epoch_images_per_sec"]) == 2
+    assert all(v > 0 for v in leg["epoch_images_per_sec"])
+    prof = leg["profiled_epoch"]
+    assert (prof["epoch"], prof["steps"]) == (1, steps // 2)
+    assert (prof["convt3_dw"], prof["convt3_dx"]) == (0, 0)
+    spec = json.loads((out / "specs.json").read_text())
+    assert (spec["dataset"], spec["precision"], spec["epochs"]) \
+        == ("celeba", "default", 2)
+
+
+def test_default_final_convt_is_the_plain_cli_run_bit_for_bit(tmp_path):
+    """Without `--final-convt` the train leg is `cudnn`, and it trains the
+    run the training CLI trains on its own bit for bit: train_losses.log,
+    model.pt and train_state.pt are the same bytes as those of `python -m
+    disvae_tpu_torch` on the same argv."""
+    _fabricate_celeba(tmp_path)
+    runs = {}
+    for kind in ("evidence", "cli"):
+        cwd = tmp_path / kind
+        os.makedirs(cwd)
+        if kind == "evidence":
+            proc = _evidence(tmp_path, "tiny", "custom", "-s", "5", "--out",
+                             str(cwd / "evidence"), "--no-cuda",
+                             "--skip-metrics", "--train-flags",
+                             CELEBA_FLAGS, cwd=cwd)
+            argv = _train_leg_argv(proc.stderr)
+            cli_argv = argv[argv.index("--") + 1:]
+            device = json.loads((cwd / "evidence" / "device.json")
+                                .read_text())
+            assert device["final_convt"] == "cudnn"
+            assert device["train_leg"]["convt3_bwd_calls"] == 0
+        else:
+            env = dict(os.environ, DISVAE_DATA_ROOT=str(tmp_path / "data"),
+                       PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+            proc = subprocess.run(
+                [sys.executable, "-m", "disvae_tpu_torch"] + cli_argv,
+                cwd=str(cwd), env=env, capture_output=True, text=True,
+                timeout=600)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        runs[kind] = cwd / "results" / "tiny"
+    for f in ("train_losses.log", "model.pt", "train_state.pt"):
+        assert (runs["evidence"] / f).read_bytes() \
+            == (runs["cli"] / f).read_bytes(), f
+
+
+def test_executions_count_each_captured_launch_once_per_replay():
+    """A wrapper's executions: its launches outside a capture, plus each
+    captured launch once per replayed step (an epoch of 16 eager steps, a
+    capture of K = 16 and 40 replays, and 13 + 1 eager steps of the
+    short super-step and the tail)."""
+    from types import SimpleNamespace as NS
+    from disvae_tpu_torch.evidence import _executions
+    graph = NS(captured_steps=16, replayed_steps=640)
+    assert _executions(NS(launches=16 + 16 + 14, captured=16), graph) \
+        == 16 + 640 + 14
+    assert _executions(NS(launches=0, captured=0), graph) == 0
+    assert _executions(NS(launches=7, captured=0), None) == 7
+
+
+FLAGSHIP = os.path.join(REPO, "artifacts", "btcvae_celeba_h100")
+FLAGSHIP_CONTROL = os.path.join(REPO, "artifacts", "btcvae_celeba_h100_cudnn")
+JAX_FLAGSHIP = os.path.join(REPO, "artifacts", "btcvae_celeba_tpu")
+FLAGSHIP_STEPS = 200 * -(-202599 // 64)  # 3,165 full batches and a tail
+
+
+def _epoch_mean(path, key, epoch):
+    return np.mean([float(v) for e, k, v in _log_rows(path)
+                    if k == key and int(e) == epoch])
+
+
+def _flagship_record(d):
+    with open(os.path.join(d, "device.json")) as f:
+        return json.load(f)
+
+
+def test_h100_flagship_set_meets_the_jax_flagship_gate():
+    """The port's declared btcvae_celeba run on the H100 with K1/K2 in
+    every step, against the gate fixed before it ran: the JAX flagship's
+    own (tests/test_artifacts.py: every plot, 200 epochs and 3,200 rows,
+    epoch 199's loss below epoch 0's less 150, its KL above 5, an animated
+    posterior gif); epoch 199's loss and recon within 0.5% of the JAX
+    run's and its loss within 0.3% of the cuDNN control's; device.json
+    naming an H100 and `kernels`, with K1's and K2's executions equal to
+    the optimizer steps over the run and to the profiled epoch's device
+    events."""
+    from PIL import Image
+    for f in ("samples.png", "data_samples.png", "reconstruct.png",
+              "prior_traversals.png", "reconstruct_traverse.png",
+              "posterior_traversals.gif", "test_losses.log",
+              "MANIFEST.txt"):
+        assert os.path.exists(os.path.join(FLAGSHIP, f)), f
+    spec = json.loads(open(os.path.join(FLAGSHIP, "specs.json")).read())
+    assert spec["epochs"] == 200 and spec["dataset"] == "celeba"
+    assert (spec["loss"], spec["batch_size"], spec["precision"],
+            spec["seed"], spec["no_viz_gif"]) \
+        == ("btcvae", 64, "default", 1234, True)
+    log = os.path.join(FLAGSHIP, "train_losses.log")
+    rows = _log_rows(log)
+    assert len(rows) == 3200
+    assert sorted({int(e) for e, k, _ in rows if k == "loss"}) \
+        == list(range(200))
+    first, last = (_epoch_mean(log, "loss", e) for e in (0, 199))
+    assert last < first - 150, (first, last)
+    assert _epoch_mean(log, "kl_loss", 199) > 5
+    with Image.open(os.path.join(FLAGSHIP, "posterior_traversals.gif")) as im:
+        assert getattr(im, "n_frames", 1) > 1
+    jax_log = os.path.join(JAX_FLAGSHIP, "train_losses.log")
+    for key in ("loss", "recon_loss"):
+        ref = _epoch_mean(jax_log, key, 199)
+        assert abs(_epoch_mean(log, key, 199) - ref) <= 0.005 * ref, key
+    control = _epoch_mean(os.path.join(FLAGSHIP_CONTROL, "train_losses.log"),
+                          "loss", 199)
+    assert abs(last - control) <= 0.003 * control
+    device = _flagship_record(FLAGSHIP)
+    leg = device["train_leg"]
+    assert "H100" in device["nvidia_smi"]
+    assert device["final_convt"] == leg["final_convt"] == "kernels"
+    assert leg["steps"] == FLAGSHIP_STEPS and leg["resident"]
+    assert leg["graph"]["replayed_steps"] > 0
+    prof = leg["profiled_epoch"]
+    for k in ("convt3_dw", "convt3_dx"):
+        assert leg[k]["executions"] == FLAGSHIP_STEPS, k
+        assert prof[k] == prof["steps"] == FLAGSHIP_STEPS // 200, k
+
+
+def test_h100_flagship_control_set_is_the_same_run_without_k1_k2():
+    """The declared cuDNN control: the hooked run's specs but for the
+    name, `cudnn` in device.json, no K1 or K2 launch or execution over
+    the run or in its profiled epoch, the same optimizer steps, and the
+    200 logged epochs of the JAX flagship's log."""
+    specs = [json.loads(open(os.path.join(d, "specs.json")).read())
+             for d in (FLAGSHIP, FLAGSHIP_CONTROL)]
+    for spec in specs:
+        spec.pop("name")
+    assert specs[0] == specs[1]
+    device = _flagship_record(FLAGSHIP_CONTROL)
+    leg = device["train_leg"]
+    assert "H100" in device["nvidia_smi"]
+    assert device["final_convt"] == leg["final_convt"] == "cudnn"
+    assert leg["steps"] == FLAGSHIP_STEPS and leg["convt3_bwd_calls"] == 0
+    for k in ("convt3_dw", "convt3_dx"):
+        assert leg[k] == {"launches": 0, "captured": 0, "executions": 0}
+        assert leg["profiled_epoch"][k] == 0
+    rows = _log_rows(os.path.join(FLAGSHIP_CONTROL, "train_losses.log"))
+    assert len(rows) == 3200
+    assert {r[1] for r in rows} == {r[1] for r in _log_rows(os.path.join(
+        JAX_FLAGSHIP, "train_losses.log"))}
