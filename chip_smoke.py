@@ -55,7 +55,9 @@ Phases (any failure raises and exits non-zero; there is no CPU carry-on):
    L2-cold ratio to its cuDNN call. K2's floor, a flat pass that reads dy
    and writes dx once in 16-byte accesses, and K2's share of it; K2's
    times at the FactorVAE half batch (128, 32, 32, 3) too; all of the
-   b256 times, bounds and floors again at the b64 flagship's shape.
+   b256 times, bounds and floors again at the b64 flagship's shape and
+   at the two Cout = 1 shapes of the mnist/fashion and chairs runs
+   (`b64_mnist`, `b64_chairs`).
 5. Eval path: the full 737,280-image dsprites lattice fabricated with
    tools/fabricate_dsprites.py, a seeded-init Burgess 64x64x1 latent-10
    checkpoint written with the port's save_model, then the port's CLI
@@ -188,7 +190,17 @@ Phases (any failure raises and exits non-zero; there is no CPU carry-on):
    (launches outside a capture plus one per replayed step) equal to the
    steps and to the profiled epoch's device events with `kernels`, all
    zero with `cudnn`; the two runs' specs equal but for the name; finite
-   test losses.
+   test losses. Then, alone on the card, FactorVAE through the same CLI
+   with the settings of the JAX run artifacts/factor_mnist_full_tpu/
+   (b64 doubled to b128, `default`, no gif) for `-e 1`, doubled to 2
+   epochs of 469 steps, on phase 17's mnist, `--final-convt kernels
+   --profile-epoch 0`: the resident feed and a replayed graph, K1's and
+   K2's executions equal to the steps (one each a step: only the first
+   half batch goes through the decoder) and to the profiled epoch's
+   device events, finite VAE and discriminator losses in both epochs and
+   finite test losses, the specs the JAX run's but for the name, the
+   epochs and the experiment; prints the graphed FactorVAE step's ms
+   (epoch 1's images/sec) and the device's busy ms a step in epoch 0.
 
 Its last two lines are JSON: the kernels' record (per kernel `ms`, the
 L2-cold time, `warm_ms`, `plain_ms`, `bound_ms`/`bound_us`, `bound_by`,
@@ -197,9 +209,11 @@ null; `launches`, the wrapper's count in the main path's run; for K1/K2
 `graph_replays` and `device_launches`, phase 7's replays and the
 profiler's count of the kernel's executions, `zoo`, phase 17's wrapper
 launches, the profiler's executions, replays and steps per run,
-`evidence`, phase 18's launches, captured launches, executions, steps
-and profiled device executions, `b64_celeba`, the times, bound and
-library call at the flagship's shape, and `cudnn_dw_ms`/`cudnn_dx_ms`;
+`evidence` and `evidence_factor`, phase 18's launches, captured
+launches, executions, steps and profiled device executions and steps in
+the flagship's and the FactorVAE kernels runs, `b64_celeba`,
+`b64_mnist` and `b64_chairs`, the times, bound and library call at the
+flagship's and the two Cout = 1 shapes, and `cudnn_dw_ms`/`cudnn_dx_ms`;
 for K2 `flat_us`, its floor, and `b128_ms`/`b128_warm_ms`; for K3
 `shapes`, the per-shape times, `eval_sum_ms`/`eval_sum_warm_ms` and
 `entropy_seconds`), then
@@ -243,6 +257,8 @@ CONVT_SHAPES = [(256, 32, 32, 3), (128, 32, 32, 3), (256, 16, 32, 1),
                 (64, 16, 32, 1), (64, 32, 32, 1), (64, 32, 32, 3),
                 (6, 4, 8, 5)]
 FLAGSHIP_CONVT = (64, 32, 32, 3)
+# phase 17's and the zoo evidence runs' Cout = 1 layers, by their dataset
+COUT1_CONVT = {(64, 16, 32, 1): "b64_mnist", (64, 32, 32, 1): "b64_chairs"}
 N_CELEBA = 25637  # 100 batches of 256 and a ragged tail of 37
 N_DSPRITES = 737280  # the full factor lattice
 EXPORT_ATOL = 1e-5  # exported program vs ServingModel, float32 both
@@ -283,11 +299,14 @@ ZOO_RUNS = [("betaB_mnist", "betaB_mnist_tpu", False),
             ("betaH_fashion", "betaH_fashion_full_tpu", True),
             ("VAE_chairs", "VAE_chairs_tpu", False)]
 ZOO_EPOCHS = 2
+# phase 18's FactorVAE run trains with this JAX run's settings
+FACTOR_EVIDENCE = "factor_mnist_full_tpu"
 # the zoo losses' own coefficients, by their specs.json keys (the CLI's
 # flags with "-" for "_")
 LOSS_COEFS = {"VAE": (), "betaH": ("betaH_B",),
               "betaB": ("betaB_initC", "betaB_finC", "betaB_G"),
-              "btcvae": ("btcvae_A", "btcvae_B", "btcvae_G")}
+              "btcvae": ("btcvae_A", "btcvae_B", "btcvae_G"),
+              "factor": ("factor_G", "lr_disc")}
 # the fabricators of phase 17's datasets: (script, flags)
 ZOO_DATA = {"mnist": ("fabricate_mnist.py", ["--dataset", "mnist"]),
             "fashion": ("fabricate_mnist.py", ["--dataset", "fashion"]),
@@ -948,6 +967,12 @@ def phase_convt_kernels(C, probe, flat):
                                "the b64 btcvae_celeba flagship")
             for k in ("convt3_dw", "convt3_dx"):
                 record[k]["b64_celeba"] = b64[k]
+        elif (n, h, cin, cout) in COUT1_CONVT:
+            key = COUT1_CONVT[n, h, cin, cout]
+            times = _convt_times(C, x32, w, dy32, probe, flat,
+                                 "{} (Cout = 1)".format(key))
+            for k in ("convt3_dw", "convt3_dx"):
+                record[k][key] = times[k]
         elif (n, h, cin, cout) == (128, 32, 32, 3):
             cold, warm = _k2_times(C, w, dy32)
             record["convt3_dx"].update(b128_ms=cold, b128_warm_ms=warm)
@@ -1842,14 +1867,17 @@ def zoo_flags(name, jax_run, gif):
     own: the name, 2 epochs, no progress bar and, unless `gif`,
     --no-viz-gif. No -x: a named experiment's INI would override them."""
     specs = zoo_specs(jax_run)
+    # a FactorVAE run's specs hold the batch the CLI doubled
+    batch = specs["batch_size"] // (2 if specs["loss"] == "factor" else 1)
     flags = [name, "-d", specs["dataset"], "-l", specs["loss"],
              "-m", specs["model_type"], "-z", str(specs["latent_dim"]),
              "-r", specs["rec_dist"], "-a", repr(specs["reg_anneal"]),
-             "--lr", repr(specs["lr"]), "-b", str(specs["batch_size"]),
+             "--lr", repr(specs["lr"]), "-b", str(batch),
              "--precision", specs["precision"], "-s", str(specs["seed"])]
     for key in LOSS_COEFS[specs["loss"]]:
         flags += ["--" + key.replace("_", "-"), repr(specs[key])]
-    flags += ["-e", str(ZOO_EPOCHS), "--no-progress-bar"]
+    flags += ["--checkpoint-every", str(specs["checkpoint_every"]),
+              "-e", str(ZOO_EPOCHS), "--no-progress-bar"]
     return flags + ([] if gif else ["--no-viz-gif"])
 
 
@@ -2175,7 +2203,105 @@ def phase_evidence(scratch, smi, package_root):
                              .format(specs))
     log("[{}] phase 18: {:.1f} s (the two runs at once)".format(smi,
                                                                 seconds))
-    return sets["kernels"][0]["train_leg"]
+    factor = _evidence_factor(scratch, smi, env)
+    log("[{}] phase 18: {:.1f} s in all".format(
+        smi, time.perf_counter() - t0))
+    return sets["kernels"][0]["train_leg"], factor
+
+
+def factor_evidence_flags():
+    """Phase 18's FactorVAE train flags: the JAX run FACTOR_EVIDENCE's
+    settings (zoo_flags) for `-e 1`, which the CLI doubles to 2 epochs."""
+    return zoo_flags("-", FACTOR_EVIDENCE, False)[1:] + ["-e", "1"]
+
+
+def _evidence_factor(scratch, smi, env):
+    """Phase 18's FactorVAE run: the evidence CLI with the settings of the
+    JAX run FACTOR_EVIDENCE for 1 epoch (doubled to 2 of 469 steps at
+    b128) on phase 17's mnist, `--final-convt kernels --profile-epoch 0`.
+    Checks device.json: the card, the resident feed and a replayed graph,
+    K1's and K2's executions equal to the steps (one each per step: only
+    the first half batch goes through the decoder) and to the profiled
+    epoch's device events; finite VAE and discriminator losses in every
+    epoch, finite test losses; the specs the JAX run's but for the name,
+    the epochs and the experiment (`custom`: the INI's would set 400
+    epochs). Prints the graphed step's ms, from epoch 1's images/sec (all
+    replays but the short super-step and the tail, not profiled: the
+    profiler's start alone takes seconds), and the device's busy ms a
+    step in the profiled epoch 0 against it. Returns the train leg's
+    record."""
+    t0 = time.perf_counter()
+    name = "chip_smoke_evidence_factor"
+    out = os.path.join(scratch, name)
+    proc = subprocess.run(
+        [sys.executable, "-m", "disvae_tpu_torch.evidence", name, "custom",
+         "-s", str(SEED), "--skip-metrics", "--final-convt", "kernels",
+         "--profile-epoch", "0", "--out", out, "--train-flags",
+         " ".join(factor_evidence_flags())], cwd=scratch, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError("phase 18, factor: the evidence CLI failed: {}"
+                             .format(proc.stdout[-3000:]))
+    with open(os.path.join(out, "device.json")) as f:
+        device = json.load(f)
+    with open(os.path.join(out, "specs.json")) as f:
+        specs = json.load(f)
+    with open(os.path.join(out, "test_losses.log")) as f:
+        losses = json.load(f)
+    rows = _read_log(out)
+    leg, prof = device["train_leg"], device["train_leg"]["profiled_epoch"]
+    ref = zoo_specs(FACTOR_EVIDENCE)
+    with np.load(os.path.join(os.environ["DISVAE_DATA_ROOT"], "mnist",
+                              "train32.npz")) as z:
+        n = len(z["labels"])
+    per_epoch = -(-n // ref["batch_size"])
+    step_ms = n / leg["epoch_images_per_sec"][1] / per_epoch * 1e3
+    busy_ms = prof["device_busy_seconds"] / prof["steps"] * 1e3
+    log("[{}] phase 18: evidence factor (factor_mnist settings, {:,} "
+        "images, b{}, 2 epochs): {} steps, resident {}, graph {}, K1/K2 "
+        "wrapper launches {} / {} ({} / {} captured), executions {} / {} "
+        "(profiled epoch 0: {} / {} device events of {} steps); graphed "
+        "FactorVAE step {:.4f} ms (epoch 1), device busy {:.4f} ms a step "
+        "in epoch 0 ({:.1%} of it); epoch images/sec {}; legs {}; test "
+        "loss {:.4f}; {:.1f} s".format(
+            smi, n, specs["batch_size"], leg["steps"], leg["resident"],
+            leg["graph"], leg["convt3_dw"]["launches"],
+            leg["convt3_dx"]["launches"], leg["convt3_dw"]["captured"],
+            leg["convt3_dx"]["captured"], leg["convt3_dw"]["executions"],
+            leg["convt3_dx"]["executions"], prof["convt3_dw"],
+            prof["convt3_dx"], prof["steps"], step_ms, busy_ms,
+            busy_ms / step_ms,
+            [round(v) for v in leg["epoch_images_per_sec"]],
+            {k: round(v, 1) for k, v in device["leg_seconds"].items()},
+            losses["loss"], seconds))
+    steps = leg["steps"]
+    bad = []
+    if device["final_convt"] != "kernels" \
+            or smi.split(",")[0] not in device["nvidia_smi"] \
+            or steps != 2 * per_epoch or not leg["resident"] \
+            or not (leg["graph"] or {}).get("replayed_steps"):
+        bad.append("the run")
+    if [leg[k]["executions"] for k in ("convt3_dw", "convt3_dx")] \
+            != [steps] * 2 \
+            or (prof["epoch"], prof["steps"]) != (0, per_epoch) \
+            or [prof["convt3_dw"], prof["convt3_dx"]] != [per_epoch] * 2:
+        bad.append("K1/K2 executions")
+    for key in ("loss", "discrim_loss"):
+        vals = {e: float(v) for e, k, v in rows if k == key}
+        if sorted(vals) != ["0", "1"] or not all(
+                math.isfinite(v) for v in vals.values()):
+            bad.append("{} rows {}".format(key, vals))
+    if not all(math.isfinite(v) for v in losses.values()):
+        bad.append("test losses")
+    skip = ("name", "epochs", "experiment")
+    if {k: v for k, v in specs.items() if k not in skip} \
+            != {k: v for k, v in ref.items() if k not in skip} \
+            or specs["epochs"] != 2:
+        bad.append("specs")
+    if bad:
+        raise AssertionError("phase 18, factor: {}: {}".format(bad, device))
+    return leg
 
 
 def phase_native(scratch, smi, datasets, eval_run, build_seconds):
@@ -2838,9 +2964,9 @@ def main(argv=None):
                             (os.path.basename(exp_dir), "dsprites")],
                   datasets)
         zoo = phase_zoo(C, scratch, smi)
-        evidence = None
+        evidence = factor = None
         if strict:
-            evidence = phase_evidence(scratch, smi, root)
+            evidence, factor = phase_evidence(scratch, smi, root)
             phase_data_parallel(C, K, scratch, smi, datasets, train_stats,
                                 (exp_dir, metrics, timings))
             phase_native(scratch, smi, datasets, (exp_dir, metrics, timings),
@@ -2855,11 +2981,12 @@ def main(argv=None):
     convt_src = "disvae_tpu_torch/csrc/convt3_bwd.cu"
 
     def _evidence_counts(leg, name):
-        """Phase 18's counts of one kernel in the kernels run."""
+        """Phase 18's counts of one kernel in a kernels run."""
         if leg is None:
             return None
         return dict(leg[name], steps=leg["steps"],
-                    device_launches=leg["profiled_epoch"][name])
+                    device_launches=leg["profiled_epoch"][name],
+                    profiled_steps=leg["profiled_epoch"]["steps"])
 
     cudnn = {k: convt[k] for k in ("cudnn_dw_ms", "cudnn_dx_ms")}
     log(json.dumps({"kernels": [
@@ -2873,7 +3000,8 @@ def main(argv=None):
              replaces="disvae_tpu/ops/pallas_convt_bwd.py:71",
              launches=dw_launches, graph_replays=replays,
              device_launches=device[0],
-             evidence=_evidence_counts(evidence, "convt3_dw"), zoo={
+             evidence=_evidence_counts(evidence, "convt3_dw"),
+             evidence_factor=_evidence_counts(factor, "convt3_dw"), zoo={
                  name: dict(launches=r["launches"][0],
                             device_launches=r["device_launches"][0],
                             graph_replays=r["graph_replays"],
@@ -2883,7 +3011,8 @@ def main(argv=None):
              replaces="disvae_tpu/ops/pallas_convt_bwd.py:108",
              launches=dx_launches, graph_replays=replays,
              device_launches=device[1],
-             evidence=_evidence_counts(evidence, "convt3_dx"), zoo={
+             evidence=_evidence_counts(evidence, "convt3_dx"),
+             evidence_factor=_evidence_counts(factor, "convt3_dx"), zoo={
                  name: dict(launches=r["launches"][1],
                             device_launches=r["device_launches"][1],
                             graph_replays=r["graph_replays"],

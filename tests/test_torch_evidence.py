@@ -86,11 +86,24 @@ def test_reduced_lattice_is_scored_on_its_own_sizes(tmp_path):
         PD.DSprites(root=str(root))
 
 
-def test_evidence_cli_on_the_cpu(tmp_path):
-    """The four legs on 192 images (1 epoch at b16): the output holds every
-    file of the JAX run's evidence set, the JAX package's reader parses its
-    train_losses.log, both metric logs are {MIG, AAM} in [0, 1], and
-    device.json records the CPU and each leg's seconds."""
+N_MNIST = 408  # 25 b16 steps and a ragged tail of 8 per epoch: 52 steps,
+# so that each epoch holds a step the log records (one in 50)
+
+
+@pytest.mark.parametrize("loss", ["btcvae", "factor"])
+def test_evidence_cli_on_the_cpu(tmp_path, loss):
+    """btcvae: the four legs on 192 dsprites images (1 epoch at b16): the
+    output holds every file of the JAX run's evidence set, the JAX
+    package's reader parses its train_losses.log, both metric logs are
+    {MIG, AAM} in [0, 1], and device.json records the CPU and each leg's
+    seconds. factor: the train and viz legs (mnist has no factors for the
+    metric legs) of FactorVAE on a fabricated mnist of 408 images, `-e 1
+    -b 8`, with `--final-convt kernels --profile-epoch 1`: the CLI doubles
+    them to 2 epochs at b16, the log holds the discriminator's rows in
+    both, and device.json's steps are the doubled run's, with one call of
+    K1/K2's route a step."""
+    if loss == "factor":
+        return _factor_evidence(tmp_path)
     _fabricate(str(tmp_path / "data" / "dsprites"))
     out = tmp_path / "evidence"
     proc = _evidence(tmp_path, "tiny", "custom", "-s", "3", "--out",
@@ -122,6 +135,38 @@ def test_evidence_cli_on_the_cpu(tmp_path):
     assert device["seed"] == 3 and device["init_from"] is None
     assert sorted(device["leg_seconds"]) == sorted(LEGS)
     assert all(v > 0 for v in device["leg_seconds"].values())
+
+
+def _factor_evidence(tmp_path):
+    subprocess.run([sys.executable,
+                    os.path.join(REPO, "tools", "fabricate_mnist.py"),
+                    "--root", str(tmp_path / "data" / "mnist"), "--n",
+                    str(N_MNIST)], check=True, capture_output=True)
+    out = tmp_path / "evidence"
+    proc = _evidence(tmp_path, "tiny", "custom", "-s", "3", "--out",
+                     str(out), "--no-cuda", "--skip-metrics",
+                     "--final-convt", "kernels", "--profile-epoch", "1",
+                     "--train-flags", "-d mnist -l factor -e 1 -b 8 "
+                     "--precision default")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert sorted(os.listdir(out / "legs")) \
+        == ["train.json", "train.log", "viz.log"]
+    spec = json.loads((out / "specs.json").read_text())
+    assert (spec["dataset"], spec["loss"], spec["epochs"],
+            spec["batch_size"]) == ("mnist", "factor", 2, 16)
+    rows = _log_rows(out / "train_losses.log")
+    for key in ("loss", "discrim_loss", "tc_loss"):
+        values = {e: float(v) for e, k, v in rows if k == key}
+        assert sorted(values) == ["0", "1"], key
+        assert np.isfinite(list(values.values())).all(), key
+    device = json.loads((out / "device.json").read_text())
+    leg = device["train_leg"]
+    steps = 2 * -(-N_MNIST // 16)
+    assert leg["steps"] == leg["convt3_bwd_calls"] == steps
+    assert len(leg["epoch_images_per_sec"]) == 2
+    assert (leg["profiled_epoch"]["epoch"], leg["profiled_epoch"]["steps"]) \
+        == (1, steps // 2)
+    assert sorted(device["leg_seconds"]) == ["train", "viz"]
 
 
 def test_init_from_the_seeds_own_init_is_the_plain_run(tmp_path):
