@@ -7,8 +7,10 @@ GPU.
     python3 chip_smoke.py --logqz-only [--package-root DIR]
     python3 chip_smoke.py --graph-only
     python3 chip_smoke.py --zoo-only
+    python3 chip_smoke.py --precision-only
 
-`--convt-only` runs phases 1, 2 and 4 only, `--logqz-only` phases 1-3 for
+`--convt-only` runs phases 1, 2 and 4 only, `--precision-only` phases 1,
+2 (K1/K2's builds), 4 and 19, `--logqz-only` phases 1-3 for
 K3 only, `--graph-only` phase 16 on seeded random images (after building
 K1/K2), `--zoo-only` phases 1, 2 and 17; `--package-root` imports disvae_tpu_torch from another checkout
 (e.g. a `git archive` of the parent commit unpacked under build/), to time
@@ -52,7 +54,9 @@ Phases (any failure raises and exits non-zero; there is no CPU carry-on):
    time by kernel, torch.profiler): K1, K2, cuDNN's dW-only, dx-only and
    whole backward of the layer (under `default`); the plain versions warm.
    Each kernel's bound (bytes or operations over the H100's peaks) and its
-   L2-cold ratio to its cuDNN call. K2's floor, a flat pass that reads dy
+   L2-cold ratio to its cuDNN call. K2 also with float32 dx (`f32_out`,
+   what the `default` path launches), beside cuDNN's TF32 dgrad of the
+   same bf16 values in float32 copies. K2's floor, a flat pass that reads dy
    and writes dx once in 16-byte accesses, and K2's share of it; K2's
    times at the FactorVAE half batch (128, 32, 32, 3) too; all of the
    b256 times, bounds and floors again at the b64 flagship's shape and
@@ -201,6 +205,26 @@ Phases (any failure raises and exits non-zero; there is no CPU carry-on):
    finite test losses, the specs the JAX run's but for the name, the
    epochs and the experiment; prints the graphed FactorVAE step's ms
    (epoch 1's images/sec) and the device's busy ms a step in epoch 0.
+19. The `default` numerics (after phase 18, this checkout's package
+   only): every conv, transposed conv and linear of the Burgess model at
+   the b64 mnist and b64 chairs shapes (the final transposed conv plain
+   and with the K1/K2 hook) and the FactorVAE discriminator's six linears
+   at its b64 half batch, under `default`, each y, dx, dw and db within
+   1e-5 of scale of float64 on the same bf16-rounded operands and
+   cotangent; one betaB_mnist step (its JAX run's settings, b64, pinned
+   noise, the hook) on the card against the same step on the CPU (metrics
+   within 1e-3 rel, each gradient within 3e-2 of its largest, parameters
+   after Adam within lr / 10 where the gradient is at least 10% of its
+   tensor's largest; one K1 and one K2 launch); betaB at b64 mnist shapes
+   graphed against eager, bit for bit; then the graphed b64 steps (K =
+   16) of betaB on mnist and chairs and of the flagship's btcvae on
+   celeba, float32 (`default`) against the bf16 compute dtype, host ms a
+   step in turns, each with a profiled window: device busy, kernels a
+   step, and the launches float32 adds. First, the algorithm choices the
+   policy makes: the wgrad of the thin convs and of two 32-channel ones
+   on bf16 values with TF32 on and off (error against float64, warm ms),
+   and whether each dgrad repeats bitwise with cuDNN's non-deterministic
+   choice. Every line carries the card's name and power limit.
 
 Its last two lines are JSON: the kernels' record (per kernel `ms`, the
 L2-cold time, `warm_ms`, `plain_ms`, `bound_ms`/`bound_us`, `bound_by`,
@@ -214,7 +238,9 @@ launches, executions, steps and profiled device executions and steps in
 the flagship's and the FactorVAE kernels runs, `b64_celeba`,
 `b64_mnist` and `b64_chairs`, the times, bound and library call at the
 flagship's and the two Cout = 1 shapes, and `cudnn_dw_ms`/`cudnn_dx_ms`;
-for K2 `flat_us`, its floor, and `b128_ms`/`b128_warm_ms`; for K3
+for K2 `flat_us`, its floor, `b128_ms`/`b128_warm_ms`, and `f32_out`
+(in the record and at each of its shapes), the times, bound and library
+call of its float32-output path; for K3
 `shapes`, the per-shape times, `eval_sum_ms`/`eval_sum_warm_ms` and
 `entropy_seconds`), then
 {"ok": true, "device": {...}}. Scratch data lives under build/ and is
@@ -825,15 +851,20 @@ def _convt_times(C, x32, w, dy32, probe, flat, label="b256 celeba"):
         dy.device).multi_processor_count
     stream = torch.cuda.current_stream().cuda_stream
 
-    def cudnn(mask):
+    def cudnn(mask, dy=dy, x=x, wb=wb):
         return lambda: torch.ops.aten.convolution_backward(
             dy, x, wb, [cout] if mask[2] else None, [2, 2], [1, 1], [1, 1],
             True, [0, 0], 1, mask)
+    # the float32-output dx on the same bf16 values: cuDNN's TF32 dgrad of
+    # float32 copies (exact products, float32 sums)
+    dy_f, x_f, w_f = dy.float(), x.float(), wb.float()
 
     fns = {"K1": lambda: C.convt3_dw(x, dy),
            "K2": lambda: C.convt3_dx(dy, w),
+           "K2 f32 out": lambda: C.convt3_dx(dy, w, torch.float32),
            "cuDNN dW": cudnn([False, True, False]),
            "cuDNN dx": cudnn([True, False, False]),
+           "cuDNN dx f32": cudnn([True, False, False], dy_f, x_f, w_f),
            "cuDNN dx+dw+db": cudnn([True, True, True]),
            "flat dy -> dx": lambda: probe.flat_pass(flat, (dy,), dx,
                                                     sm_count, stream, sink)}
@@ -851,26 +882,30 @@ def _convt_times(C, x32, w, dy32, probe, flat, label="b256 celeba"):
                            10),
              "K2": time_ms(lambda: C.convt3_dx_plain(dy, w, torch.bfloat16),
                            10)}
+    plain["K2 f32 out"] = plain["K2"]  # the plain version sums in float32
     log("K1/K2 times at {}, bf16, ms (L2-cold / warm device): ".format(
         label)
         + ", ".join("{} {:.4f} / {:.4f}".format(k, cold[k], warm[k])
                     for k in fns)
         + "; plain K1 {:.4f}, plain K2 {:.4f}".format(plain["K1"],
                                                      plain["K2"]))
-    for k in ("K1", "K2"):
+    for k in ("K1", "K2", "K2 f32 out"):
         log("{} warm, by kernel: {}".format(k, "; ".join(
             "{:.2f} us {}".format(ms * 1e3 / n, name[:60])
             for name, ms, n in kernels[k]) or "not measured (no device "
             "events)"))
     # bytes, each read or written once: K1 reads x and dy (bf16) and writes
-    # dW (float32); K2 reads dy and w (float32) and writes dx (bf16). The
-    # product's multiply-adds on the bf16 tensor cores.
+    # dW (float32); K2 reads dy and w (float32) and writes dx (bf16, or
+    # float32 on the `default` path). The product's
+    # multiply-adds on the bf16 tensor cores.
     flops = 2 * x.numel() * 16 * cout
     nbytes = {"K1": 2 * (x.numel() + dy.numel()) + 4 * w.numel(),
-              "K2": 2 * (dy.numel() + x.numel()) + 4 * w.numel()}
-    lib = {"K1": "cuDNN dW", "K2": "cuDNN dx"}
+              "K2": 2 * (dy.numel() + x.numel()) + 4 * w.numel(),
+              "K2 f32 out": 2 * dy.numel() + 4 * (x.numel() + w.numel())}
+    lib = {"K1": "cuDNN dW", "K2": "cuDNN dx", "K2 f32 out": "cuDNN dx f32"}
     record = {"cudnn_dw_ms": cold["cuDNN dW"], "cudnn_dx_ms": cold["cuDNN dx"]}
-    for k, name in (("K1", "convt3_dw"), ("K2", "convt3_dx")):
+    for k, name in (("K1", "convt3_dw"), ("K2", "convt3_dx"),
+                    ("K2 f32 out", "convt3_dx_f32_out")):
         r = _bound(nbytes[k], ops=[(flops, PEAK_BF16)])
         r.update(ms=cold[k], warm_ms=warm[k], plain_ms=plain[k],
                  library_ms=cold[lib[k]], warm_library_ms=warm[lib[k]],
@@ -886,6 +921,7 @@ def _convt_times(C, x32, w, dy32, probe, flat, label="b256 celeba"):
     # still sit in L2 when the end event fires)
     flat_ms = cold["flat dy -> dx"]
     record["convt3_dx"]["flat_us"] = flat_ms * 1e3
+    record["convt3_dx"]["f32_out"] = record.pop("convt3_dx_f32_out")
     log("K2's floor, a flat read of dy and write of dx ({:.2f} MB): L2-cold "
         "{:.2f} us, warm {:.2f} us; K2 at {:.1%} of it and {:.1%} of its "
         "bound".format(2 * (dy.numel() + dx.numel()) / 1e6, flat_ms * 1e3,
@@ -1448,6 +1484,14 @@ def phase_ab(C, datasets):
     finally:
         burgess.set_final_convt_impl(burgess.conv_transpose2d)
         configure("highest")
+
+
+def _precision_cases():
+    """The float64 layer check the GPU tests use too
+    (tests/precision_cases.py)."""
+    _graph_cases()
+    import precision_cases
+    return precision_cases
 
 
 def _graph_cases():
@@ -2856,6 +2900,417 @@ def phase_data_parallel(C, K, scratch, smi, datasets, plain_train,
             os.environ.pop(k, None)
 
 
+# Phase 19: the `default` numerics. Each layer against float64 on the
+# same bf16-rounded operands (max |d| / max |ref|). The card's b64
+# betaB_mnist step against the CPU's: the two sum in another order, so a
+# value one float32 rounding apart can round to the neighbouring bf16
+# value, and such differences grow to the bf16 step (2^-8) within a few
+# layers; the bounds sit at that level (metrics rel, each gradient max |d|
+# / max |g|), a tenth of what bf16 autocast misses by (tests/
+# test_torch_precision_default.py). Then the graphed b64 steps of each
+# compute dtype.
+PRECISION_LAYER_TOL = 1e-5
+STEP_METRIC_RTOL, STEP_GRAD_TOL = 1e-3, 3e-2
+# (what, loss, img_size) of the timed graphed b64 steps
+PRECISION_STEPS = [("b64 mnist betaB", "betaB", (1, 32, 32)),
+                   ("b64 chairs betaB", "betaB", (1, 64, 64)),
+                   ("b64 celeba btcvae (the flagship)", "btcvae",
+                    (3, 64, 64))]
+
+
+def _layer_cases(img_size, batch=64, seed=SEED):
+    """(name, layer call, x, weight, bias) of every conv, transposed conv
+    and linear of a seeded Burgess model at `img_size` and batch `batch`,
+    on the card: x the layer's input shape (images in [0, 1] for the
+    first conv, ReLU'd normals after), the final transposed conv both
+    plain and with the K1/K2 hook."""
+    from disvae_tpu_torch.models import burgess
+    from disvae_tpu_torch.models.vae import init_specific_model
+    from disvae_tpu_torch.ops import convt_bwd as C
+    from disvae_tpu_torch.ops import precision as P
+    dev = torch.device("cuda")
+    model = init_specific_model("Burgess", img_size, 10, device=dev,
+                                generator=torch.Generator().manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    c, h = img_size[0], img_size[1]
+
+    def act(*shape):
+        return torch.from_numpy(np.maximum(rng.standard_normal(
+            shape, np.float32), 0)).to(dev)
+
+    cases = []
+    enc, dec = model.encoder, model.decoder
+    convs = ["conv1", "conv2", "conv3"] + (
+        ["conv_64"] if enc.conv_64 is not None else [])
+    hw, cin = h, c
+    for i, name in enumerate(convs):
+        layer = getattr(enc, name)
+        x = (torch.from_numpy(rng.random((batch, c, h, h), np.float32))
+             .to(dev) if i == 0 else act(batch, cin, hw, hw))
+        cases.append((name, P.conv2d, x, layer.weight, layer.bias))
+        hw, cin = hw // 2, layer.out_channels
+    for name, layer in (("lin1", enc.lin1), ("lin2", enc.lin2),
+                        ("mu_logvar_gen", enc.mu_logvar_gen),
+                        ("decoder lin1", dec.lin1),
+                        ("decoder lin2", dec.lin2),
+                        ("decoder lin3", dec.lin3)):
+        cases.append((name, P.linear, act(batch, layer.in_features),
+                      layer.weight, layer.bias))
+    convts = (["convT_64"] if dec.convT_64 is not None else []) + [
+        "convT1", "convT2"]
+    hw = burgess.BOTTLENECK_HW
+    for name in convts:
+        layer = getattr(dec, name)
+        cases.append((name, P.conv_transpose2d, act(batch, 32, hw, hw),
+                      layer.weight, layer.bias))
+        hw *= 2
+    x = act(batch, 32, hw, hw)
+    w, b = dec.convT3.weight, dec.convT3.bias
+    cases.append(("convT3", burgess.conv_transpose2d, x, w, b))
+    cases.append(("convT3 with the K1/K2 hook", C.conv_transpose2d_pl, x, w,
+                  b))
+    return cases
+
+
+def _layer_against_float64(fn, x, w, b, seed):
+    """One layer's output and dx, dw, db under `default` on the card
+    against float64 of the same bf16-rounded x, w and cotangent (db from
+    the unrounded cotangent; tests/precision_cases.py). Returns {output:
+    max |d| / max |ref|}."""
+    from disvae_tpu_torch.ops import precision as P
+    cases = _precision_cases()
+    kind = ("linear" if fn is P.linear else "conv" if fn is P.conv2d
+            else "convT")
+    with torch.no_grad():
+        out_shape = fn(x, w, b).shape
+    g = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        tuple(out_shape), np.float32)).to(x.device)
+    return cases.relative_errors(cases.layer_against_float64(kind, fn, x, w,
+                                                             b, g))
+
+
+def _precision_layers(say):
+    """Every layer at the b64 mnist and chairs shapes and the FactorVAE
+    discriminator's six linears at its b128 half batch, under `default`,
+    against float64 on the rounded operands."""
+    from disvae_tpu_torch.models.discriminator import Discriminator
+    from disvae_tpu_torch.ops import precision as P
+    disc = Discriminator(latent_dim=10, generator=torch.Generator()
+                         .manual_seed(SEED)).cuda()
+    rng = np.random.default_rng(SEED + 1)
+    d_cases = [("lin{}".format(i), P.linear, torch.from_numpy(
+        rng.standard_normal((64, lin.in_features), np.float32)).cuda(),
+        lin.weight, lin.bias) for i, lin in enumerate(
+            (getattr(disc, "lin{}".format(j)) for j in range(1, 7)), 1)]
+    worst, bad = 0.0, []
+    P.configure("default")
+    try:
+        for what, cases in (("b64 mnist", _layer_cases((1, 32, 32))),
+                            ("b64 chairs", _layer_cases((1, 64, 64))),
+                            ("b64 discriminator", d_cases)):
+            errs = []
+            for i, (name, fn, x, w, b) in enumerate(cases):
+                e = _layer_against_float64(fn, x, w, b, SEED + i)
+                worst = max(worst, max(e.values()))
+                if not max(e.values()) <= PRECISION_LAYER_TOL:
+                    bad.append((what, name, e))
+                errs.append("{} {:.1e}".format(name, max(e.values())))
+            say("default against float64 on the same bf16-rounded operands, "
+                "{} (x {} ...), worst of y/dx/dw/db by layer: {}", what,
+                tuple(cases[0][2].shape), ", ".join(errs))
+    finally:
+        P.configure("highest")
+    if bad:
+        raise AssertionError("layers off float64 on their rounded operands "
+                             "by more than {}: {}".format(
+                                 PRECISION_LAYER_TOL, bad))
+    return worst
+
+
+def _betaB_mnist_step(device, batch, eps, hook):
+    """One betaB step with betaB_mnist's settings (its JAX specs.json) on
+    `device` from a seeded init: (metrics, {name: grad}, {name: param},
+    lr)."""
+    from disvae_tpu_torch.models import burgess
+    from disvae_tpu_torch.models.vae import init_specific_model
+    from disvae_tpu_torch.ops import convt_bwd as C
+    from disvae_tpu_torch.ops.losses import get_loss_f
+    from disvae_tpu_torch.train.state import create_train_state
+    from disvae_tpu_torch.train.steps import make_optimizer, make_train_step
+    specs = zoo_specs("betaB_mnist_tpu")
+    cfg = get_loss_f("betaB", n_data=60000, **{
+        k: specs[k] for k in ("rec_dist", "reg_anneal", "betaB_initC",
+                              "betaB_finC", "betaB_G")})
+    model = init_specific_model("Burgess", (1, 32, 32), 10, device=device,
+                                generator=torch.Generator().manual_seed(SEED))
+    state = create_train_state(
+        model, make_optimizer(model.parameters(), specs["lr"]),
+        torch.Generator(device=device).manual_seed(SEED), loss_cfg=cfg)
+    if hook:
+        burgess.set_final_convt_impl(C.conv_transpose2d_pl)
+    try:
+        metrics = make_train_step(cfg)(state, batch.to(device),
+                                       {"eps": eps.to(device)})
+    finally:
+        burgess.set_final_convt_impl(burgess.conv_transpose2d)
+    return ({k: float(v) for k, v in metrics.items()},
+            {k: p.grad.detach().cpu() for k, p in model.named_parameters()},
+            {k: p.detach().cpu() for k, p in model.named_parameters()},
+            specs["lr"])
+
+
+def _precision_step(say, C):
+    """The betaB_mnist step under `default` with the K1/K2 hook on the card
+    against the same step on the CPU (plain K1/K2): metrics, gradients and
+    the parameters after Adam."""
+    from disvae_tpu_torch.ops.precision import configure
+    rng = np.random.default_rng(SEED)
+    batch = torch.from_numpy(rng.integers(0, 256, (64, 32, 32, 1),
+                                          dtype=np.uint8))
+    eps = torch.from_numpy(rng.standard_normal((64, 10), np.float32))
+    configure("default")
+    try:
+        before = (C.convt3_dw.launches, C.convt3_dx.launches)
+        card = _betaB_mnist_step(torch.device("cuda"), batch, eps, True)
+        launched = (C.convt3_dw.launches - before[0],
+                    C.convt3_dx.launches - before[1])
+        cpu = _betaB_mnist_step(torch.device("cpu"), batch, eps, True)
+    finally:
+        configure("highest")
+    lr = card[3]
+    m_err = max(abs(card[0][k] - cpu[0][k]) / max(abs(cpu[0][k]), 1e-6)
+                for k in cpu[0])
+    g_errs = {k: _rel(cpu[1][k], card[1][k]) for k in cpu[1]}
+    g_err = max(g_errs.values())
+    # Adam's first step moves a parameter by about lr * sign(g): compared
+    # where the gradient is at least 10% of its tensor's largest
+    p_err = max(
+        (card[2][k] - cpu[2][k]).abs()[
+            cpu[1][k].abs() >= 0.1 * cpu[1][k].abs().max()].max().item()
+        for k in cpu[2])
+    say("betaB_mnist step under default, card (K1/K2 {}) against CPU: "
+        "metrics max rel {:.2e}, gradients max |d| / max |g| {:.2e} (worst "
+        "tensor; by tensor {}), parameters after Adam max |d| {:.2e} where "
+        "|g| >= 10% of its tensor's largest (lr {})", launched, m_err, g_err,
+        ", ".join("{} {:.1e}".format(k, v) for k, v in g_errs.items()),
+        p_err, lr)
+    if launched != (1, 1) or not (m_err <= STEP_METRIC_RTOL
+                                  and g_err <= STEP_GRAD_TOL
+                                  and p_err <= lr / 10):
+        raise AssertionError("the card's betaB_mnist step is off the CPU's: "
+                             "launches {}, metrics {}, grads {}, params "
+                             "{}".format(launched, m_err, g_err, p_err))
+    return {"metrics_rel": m_err, "grad_rel": g_err, "param_abs": p_err}
+
+
+def _step_kernels(prof, steps):
+    """(busy ms a step, kernels a step, [(kernel, ms a step, calls a
+    step)]) of a profiled window of `steps` steps."""
+    seconds, top = _device_profile(prof)
+    calls = sum(n for _, _, n in top)
+    return (seconds * 1e3 / steps, calls / steps,
+            [(k, ms / steps, n / steps) for k, ms, n in top])
+
+
+def _precision_step_times(say, C):
+    """The graphed b64 steps (K = GRAPH_K, the Trainer's) of
+    PRECISION_STEPS under `default` with the K1/K2 hook, float32 (the
+    `default` numerics) against the bf16 compute dtype (autocast), host ms
+    a step in turns (float32, bf16, bf16, float32; GRAPH_SUPER super-steps
+    each), then a profiled window of two super-steps each: busy share,
+    kernels a step, and the kernels the float32 step adds."""
+    from disvae_tpu_torch.models import burgess
+    from disvae_tpu_torch.ops.precision import configure
+    G = _graph_cases()
+    dev = torch.device("cuda")
+    out = {}
+    configure("default")
+    burgess.set_final_convt_impl(C.conv_transpose2d_pl)
+    try:
+        for what, loss, img in PRECISION_STEPS:
+            c, h, _ = img
+            wire = torch.from_numpy(np.random.default_rng(SEED).integers(
+                0, 256, (4096, h, h, c), dtype=np.uint8)).to(dev)
+            idx = torch.from_numpy(np.random.default_rng(SEED).integers(
+                0, 4096, (GRAPH_SUPER * GRAPH_K, 64))).to(dev)
+            runs = {}
+            for dt in ("float32", "bfloat16"):
+                cfg, state = G.train_state(loss, dev, img,
+                                           compute_dtype=dt)
+                runs[dt] = (G.super_step(cfg, state, GRAPH_K, True), state)
+
+            def run(dt, n):
+                step, state = runs[dt]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for i in range(n):
+                    j = i % GRAPH_SUPER * GRAPH_K
+                    step(state, wire, idx[j:j + GRAPH_K])
+                torch.cuda.synchronize()
+                return (time.perf_counter() - t0) / (n * GRAPH_K) * 1e3
+
+            for dt in runs:
+                run(dt, 3)  # eager, capture, replay
+                if not runs[dt][0].captured:
+                    raise AssertionError("{} {}: never captured".format(
+                        what, dt))
+            times = {dt: [] for dt in runs}
+            for dt in ("float32", "bfloat16", "bfloat16", "float32"):
+                times[dt].append(run(dt, GRAPH_SUPER))
+            prof_ = {}
+            for dt in runs:
+                torch.cuda.synchronize()
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    run(dt, 2)
+                    wall = (time.perf_counter() - t0) * 1e3 / (2 * GRAPH_K)
+                busy, calls, top = _step_kernels(prof, 2 * GRAPH_K)
+                prof_[dt] = dict(busy_ms=busy, wall_ms=wall,
+                                 busy=busy / wall if wall else None,
+                                 kernels_a_step=calls, top=top)
+            names = {k: n for k, _, n in prof_["bfloat16"]["top"]}
+            added = sorted(
+                ((k, n - names.get(k, 0.0), ms)
+                 for k, ms, n in prof_["float32"]["top"]
+                 if n - names.get(k, 0.0) > 0.5),
+                key=lambda t: -t[2])
+            out[what] = {dt: dict(graph_ms=times[dt], **{
+                k: v for k, v in prof_[dt].items() if k != "top"})
+                for dt in runs}
+            out[what]["added_kernels"] = [
+                dict(kernel=k[:120], per_step=n, ms=ms)
+                for k, n, ms in added]
+            for dt in runs:
+                p = prof_[dt]
+                say("{} graphed, {} ({}): host ms a step {}; device busy "
+                    "{:.4f} of {:.4f} ms ({:.1%}), {:.1f} kernels a step",
+                    what, dt, "the default numerics" if dt == "float32"
+                    else "autocast", " / ".join(
+                        "{:.4f}".format(t) for t in times[dt]),
+                    p["busy_ms"], p["wall_ms"], p["busy"] or 0.0,
+                    p["kernels_a_step"])
+                for k, ms, n in p["top"][:10]:
+                    say("  {} {}: {:8.4f} ms a step {:5.1f} calls  {}",
+                        what, dt, ms, n, k[:100])
+            for k, n, ms in added[:12]:
+                say("  {}: float32 adds {:.1f} launches a step of {} "
+                    "({:.4f} ms a step in all)", what, n, k[:100], ms)
+    finally:
+        burgess.set_final_convt_impl(burgess.conv_transpose2d)
+        configure("highest")
+    return out
+
+
+def _precision_graph(say, C):
+    """betaB at b64 mnist shapes under `default` with the K1/K2 hook: four
+    graphed super-steps of K = 4 against four eager ones, bit for bit."""
+    from disvae_tpu_torch.models import burgess
+    from disvae_tpu_torch.ops.precision import configure
+    G = _graph_cases()
+    dev = torch.device("cuda")
+    wire = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, 256, (1024, 32, 32, 1), dtype=np.uint8)).to(dev)
+    idx = torch.from_numpy(np.random.default_rng(SEED + 1).integers(
+        0, 1024, (16, 64))).to(dev)
+    configure("default")
+    burgess.set_final_convt_impl(C.conv_transpose2d_pl)
+    try:
+        m_eager, m_graph, s_eager, s_graph, step = G.graph_against_eager(
+            "betaB", wire, idx, 4, img_size=(1, 32, 32))
+    finally:
+        burgess.set_final_convt_impl(burgess.conv_transpose2d)
+        configure("highest")
+    diff = G.differences(s_eager, s_graph)
+    same = torch.equal(m_eager, m_graph)
+    say("graph against eager, betaB at b64 mnist shapes (default, hook; "
+        "replays {}): metrics bitwise {}, state differences {}",
+        step.replays, same, diff)
+    if step.replays != 3 or not same or diff:
+        raise AssertionError("the graphed default step is not the eager one")
+
+
+# (what, kind, x shape, torch weight shape) of the algorithm choices
+# ops/precision.py makes under `default`: the thin convs (THIN_CHANNELS)
+# and the 32-channel ones
+WGRAD_CASES = [("conv1 mnist", "conv", (64, 1, 32, 32), (32, 1, 4, 4)),
+               ("conv1 chairs", "conv", (64, 1, 64, 64), (32, 1, 4, 4)),
+               ("conv1 celeba", "conv", (64, 3, 64, 64), (32, 3, 4, 4)),
+               ("convT3 chairs", "convT", (64, 32, 32, 32), (32, 1, 4, 4)),
+               ("conv2 chairs", "conv", (64, 32, 32, 32), (32, 32, 4, 4)),
+               ("convT2 chairs", "convT", (64, 32, 16, 16), (32, 32, 4, 4))]
+
+
+def _precision_algorithms(say):
+    """Why `default` takes the thin convs' wgrad with TF32 off and keeps
+    cuDNN deterministic: each case's wgrad on bf16-rounded operands with
+    TF32 on and off (deterministic cuDNN), its error against float64 and
+    its warm device ms; and whether the dgrad of each case repeats bit for
+    bit with cuDNN's own (non-deterministic) choice under TF32."""
+    from disvae_tpu_torch.ops import precision as P
+    rng = np.random.default_rng(SEED + 2)
+    out = {}
+    P.configure("default")
+    try:
+        for what, kind, xs, ws in WGRAD_CASES:
+            x = P.round_bf16(torch.from_numpy(np.maximum(rng.standard_normal(
+                xs, np.float32), 0)).cuda())
+            w = P.round_bf16(torch.from_numpy(0.1 * rng.standard_normal(
+                ws, np.float32)).cuda())
+            tr = kind == "convT"
+            y = (torch.nn.functional.conv_transpose2d if tr
+                 else torch.nn.functional.conv2d)(x, w, None, stride=2,
+                                                  padding=1)
+            g = P.round_bf16(torch.from_numpy(rng.standard_normal(
+                tuple(y.shape), np.float32)).cuda())
+
+            def grad(mask, x=x, w=w, g=g, tr=tr):
+                return torch.ops.aten.convolution_backward(
+                    g, x, w, None, [2, 2], [1, 1], [1, 1], tr, [0, 0], 1,
+                    mask)
+            ref = torch.ops.aten.convolution_backward(
+                g.double(), x.double(), w.double(), None, [2, 2], [1, 1],
+                [1, 1], tr, [0, 0], 1, [False, True, False])[1]
+            rec = {}
+            for tf32 in (True, False):
+                torch.backends.cudnn.allow_tf32 = tf32
+                dw = grad([False, True, False])[1]
+                err = ((dw.double() - ref).abs().max()
+                       / ref.abs().max()).item()
+                ms = _device_ms(lambda: grad([False, True, False]))[0]
+                rec["tf32" if tf32 else "float32"] = dict(err=err, ms=ms)
+            torch.backends.cudnn.allow_tf32 = True
+            torch.backends.cudnn.deterministic = False
+            a, b = (grad([True, False, False])[0] for _ in range(2))
+            rec["dgrad_repeats_nondeterministic"] = torch.equal(a, b)
+            torch.backends.cudnn.deterministic = True
+            out[what] = rec
+            say("{} wgrad on bf16 values: TF32 {:.1e} off float64 in {:.4f} "
+                "ms, TF32 off {:.1e} in {:.4f} ms; dgrad with cuDNN's own "
+                "choice repeats bitwise: {}", what, rec["tf32"]["err"],
+                rec["tf32"]["ms"], rec["float32"]["err"],
+                rec["float32"]["ms"], rec["dgrad_repeats_nondeterministic"])
+    finally:
+        P.configure("highest")
+    return out
+
+
+def phase_precision(C, smi):
+    """Phase 19: the `default` numerics on the card (module docstring)."""
+    def say(fmt, *args):
+        log(("[{}] " + fmt).format(smi, *args))
+    t0 = time.perf_counter()
+    algorithms = _precision_algorithms(say)
+    worst = _precision_layers(say)
+    step = _precision_step(say, C)
+    _precision_graph(say, C)
+    times = _precision_step_times(say, C)
+    say("precision phase: {:.1f} s", time.perf_counter() - t0)
+    return {"algorithms": algorithms, "layers_worst": worst, "step": step,
+            "step_times": times}
+
+
 def main(argv=None):
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2872,6 +3327,9 @@ def main(argv=None):
                         help="build every kernel and run phase 17 (VAE, "
                         "betaH, betaB on mnist, fashion, chairs through the "
                         "CLIs) only, then stop")
+    parser.add_argument("--precision-only", action="store_true",
+                        help="build K1/K2, check and time them (phase 4), "
+                        "then run the default numerics phase (19) only")
     parser.add_argument("--package-root", default=REPO,
                         help="import disvae_tpu_torch from this directory "
                         "(another checkout, to time its kernels in the same "
@@ -2891,9 +3349,11 @@ def main(argv=None):
     smi = phase_device()
     probe = _probe()
     floor = types.SimpleNamespace(build=probe.build_flat)
-    if args.convt_only:
+    if args.convt_only or args.precision_only:
         paths = phase_build({"convt3_bwd": C, "flat_floor": floor})
         phase_convt_kernels(C, probe, paths["flat_floor"])
+        if args.precision_only:
+            log(json.dumps({"precision": phase_precision(C, smi)}))
         return 0
     if args.logqz_only:
         paths = phase_build({"log_qz": K})
@@ -2967,6 +3427,7 @@ def main(argv=None):
         evidence = factor = None
         if strict:
             evidence, factor = phase_evidence(scratch, smi, root)
+            log(json.dumps({"precision": phase_precision(C, smi)}))
             phase_data_parallel(C, K, scratch, smi, datasets, train_stats,
                                 (exp_dir, metrics, timings))
             phase_native(scratch, smi, datasets, (exp_dir, metrics, timings),

@@ -109,7 +109,9 @@ def parse_arguments(args_to_parse):
     general.add_argument('--precision', default="highest",
                          choices=PRECISIONS,
                          help='float32 matmul/conv policy: highest (TF32 '
-                              'off), high (TF32), default (bf16 autocast).')
+                              'off), high (TF32), default (JAX\'s TPU '
+                              'default: bf16-rounded operands, float32 '
+                              'sums and activations).')
     general.add_argument('--resume', action='store_true', default=False,
                          help='Resume training from results/<name>/'
                               'train_state.pt.')

@@ -33,9 +33,11 @@ legs run no backward): `cudnn`, the default, keeps `F.conv_transpose2d`'s
 own; `kernels` hands `burgess.set_final_convt_impl` the K1/K2 wrapper
 `convt_bwd.conv_transpose2d_pl`, whose backward launches K1 and K2 under
 `--precision default`. The train leg writes DIR/legs/train.json, which
-device.json takes as `train_leg`: the optimizer steps, the resident feed
-and the CUDA graph's captured and replayed steps, each epoch's
-images/sec, and per kernel its wrapper's launches, those made during a
+device.json takes as `train_leg`: the precision policy and what it
+computes (`ops/precision.py` NUMERICS; sets trained before the port's
+`default` took JAX's numerics lack both), the optimizer steps, the
+resident feed and the CUDA graph's captured and replayed steps, each
+epoch's images/sec, and per kernel its wrapper's launches, those made during a
 capture, and its executions: the launches outside a capture, plus each
 captured one once per replayed step. `convt3_bwd_calls` counts the
 backward's calls through `convt_bwd.convt3_bwd` on either device (on the
@@ -287,7 +289,7 @@ def train_leg(argv):
     opts = parser.parse_args(argv[:split])
 
     from disvae_tpu_torch.models import burgess
-    from disvae_tpu_torch.ops import convt_bwd
+    from disvae_tpu_torch.ops import convt_bwd, precision
     from disvae_tpu_torch.train.steps import GraphedSuperStep
     if opts.final_convt == "kernels":
         burgess.set_final_convt_impl(convt_bwd.conv_transpose2d_pl)
@@ -298,6 +300,8 @@ def train_leg(argv):
     graph = step if isinstance(step, GraphedSuperStep) else None
     record = dict(
         final_convt=opts.final_convt, steps=trainer.state.step,
+        precision=precision.current(),
+        numerics=precision.NUMERICS[precision.current()],
         resident=trainer.resident_data is not None,
         graph=None if graph is None else dict(
             k=graph.k, captured_steps=graph.captured_steps,

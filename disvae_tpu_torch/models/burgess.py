@@ -5,6 +5,8 @@ Counterpart of disvae_tpu/models/burgess.py (`apply_encoder` :62-87,
 decoders.py:16-84): 3 (or 4 for 64x64) stride-2 k4 convs with 32 channels
 and ReLU, two 256-unit linear layers, a 2 * latent_dim head split into
 interleaved (mu, logvar) pairs; the decoder mirrors it with a final sigmoid.
+Every layer is an ops/precision.py module, so the precision policy decides
+its numerics, as it does for `disvae_tpu.ops.convs` in JAX.
 
 The public layout is the JAX package's: images NHWC float32 in [0, 1].
 Inside, the convolutions run NCHW with the reference's parameter names
@@ -14,6 +16,8 @@ Inside, the convolutions run NCHW with the reference's parameter names
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from disvae_tpu_torch.ops import precision
 
 HID_CHANNELS = 32
 KERNEL = 4
@@ -32,17 +36,17 @@ def _is_64(img_size):
 
 
 def _conv(cin, cout):
-    return nn.Conv2d(cin, cout, KERNEL, stride=2, padding=1)
+    return precision.Conv2d(cin, cout, KERNEL, stride=2, padding=1)
 
 
 def _convT(cin, cout):
-    return nn.ConvTranspose2d(cin, cout, KERNEL, stride=2, padding=1)
+    return precision.ConvTranspose2d(cin, cout, KERNEL, stride=2, padding=1)
 
 
 def conv_transpose2d(x, w, b):
-    """The k4 s2 p1 transposed conv of every decoder layer, as
-    nn.ConvTranspose2d computes it."""
-    return F.conv_transpose2d(x, w, b, stride=2, padding=1)
+    """The k4 s2 p1 transposed conv of every decoder layer, under the
+    precision policy."""
+    return precision.conv_transpose2d(x, w, b)
 
 
 # Implementation of the FINAL transposed conv only (Cout = n_chan <= 3;
@@ -71,9 +75,9 @@ class Encoder(nn.Module):
         self.conv2 = _conv(HID_CHANNELS, HID_CHANNELS)
         self.conv3 = _conv(HID_CHANNELS, HID_CHANNELS)
         self.conv_64 = _conv(HID_CHANNELS, HID_CHANNELS) if is_64 else None
-        self.lin1 = nn.Linear(BOTTLENECK_FLAT, HIDDEN_DIM)
-        self.lin2 = nn.Linear(HIDDEN_DIM, HIDDEN_DIM)
-        self.mu_logvar_gen = nn.Linear(HIDDEN_DIM, latent_dim * 2)
+        self.lin1 = precision.Linear(BOTTLENECK_FLAT, HIDDEN_DIM)
+        self.lin2 = precision.Linear(HIDDEN_DIM, HIDDEN_DIM)
+        self.mu_logvar_gen = precision.Linear(HIDDEN_DIM, latent_dim * 2)
 
     def forward(self, x):
         h = x.permute(0, 3, 1, 2)  # NHWC -> NCHW
@@ -86,6 +90,7 @@ class Encoder(nn.Module):
         h = h.reshape(h.shape[0], -1)
         h = F.relu(self.lin1(h))
         h = F.relu(self.lin2(h))
+        # a no-op but under the bf16 compute dtype (models/vae.py)
         mu_logvar = self.mu_logvar_gen(h).float()
         # interleaved (mu, logvar) pairs (burgess.py:84-87)
         mu, logvar = mu_logvar.view(-1, self.latent_dim, 2).unbind(-1)
@@ -98,9 +103,9 @@ class Decoder(nn.Module):
     def __init__(self, img_size, latent_dim=10):
         super().__init__()
         is_64 = _is_64(img_size)
-        self.lin1 = nn.Linear(latent_dim, HIDDEN_DIM)
-        self.lin2 = nn.Linear(HIDDEN_DIM, HIDDEN_DIM)
-        self.lin3 = nn.Linear(HIDDEN_DIM, BOTTLENECK_FLAT)
+        self.lin1 = precision.Linear(latent_dim, HIDDEN_DIM)
+        self.lin2 = precision.Linear(HIDDEN_DIM, HIDDEN_DIM)
+        self.lin3 = precision.Linear(HIDDEN_DIM, BOTTLENECK_FLAT)
         self.convT_64 = _convT(HID_CHANNELS, HID_CHANNELS) if is_64 else None
         self.convT1 = _convT(HID_CHANNELS, HID_CHANNELS)
         self.convT2 = _convT(HID_CHANNELS, HID_CHANNELS)

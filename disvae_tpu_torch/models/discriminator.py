@@ -4,13 +4,16 @@ Counterpart of disvae_tpu/models/discriminator.py (reference
 disvae/models/discriminator.py:10-73): a 6-layer MLP with 1000 hidden
 units and LeakyReLU(0.2), emitting 2 logits. Every weight gets the
 kaiming-uniform relu init that the reference applies blindly
-(models/initialization.py), biases torch's default.
+(models/initialization.py), biases torch's default. Its layers run under
+the precision policy (ops/precision.py `Linear`), as JAX's call
+`disvae_tpu.ops.convs.linear`.
 """
 
 import torch.nn.functional as F
 from torch import nn
 
 from disvae_tpu_torch.models.initialization import weights_init
+from disvae_tpu_torch.ops.precision import Linear
 
 N_LAYERS = 6
 
@@ -27,7 +30,7 @@ class Discriminator(nn.Module):
                 + [out_units])
         for i in range(N_LAYERS):
             setattr(self, "lin{}".format(i + 1),
-                    nn.Linear(dims[i], dims[i + 1]))
+                    Linear(dims[i], dims[i + 1]))
         weights_init(self, generator)
 
     def forward(self, z):

@@ -2,9 +2,11 @@
 
 forward -> (reconstruction, (mu, logvar), latent_sample). `reparameterize`
 returns the mean in eval mode and mu + sigma * eps in train mode, with eps
-given (pinned noise) or drawn from an explicit `torch.Generator`. Under
-the ``default`` precision policy the encoder and decoder run in bf16
-autocast; their outputs are float32 either way (ops/precision.py).
+given (pinned noise) or drawn from an explicit `torch.Generator`.
+`compute_dtype` is JAX's (disvae_tpu/models/vae.py:45-50): "float32" runs
+the layers under the precision policy (ops/precision.py); "bfloat16" runs
+the encoder and decoder in bf16 autocast (bf16 activations, weights and
+layer outputs) under any policy. Their outputs are float32 either way.
 """
 
 import torch
@@ -12,20 +14,20 @@ from torch import nn
 
 from disvae_tpu_torch.models import burgess
 from disvae_tpu_torch.models.initialization import weights_init
-from disvae_tpu_torch.ops import precision
 
 MODELS = ["Burgess"]
+COMPUTE_DTYPES = ["float32", "bfloat16"]
 
 
 def init_specific_model(model_type, img_size, latent_dim, generator=None,
-                        device=None):
+                        device=None, compute_dtype="float32"):
     """Build a `model_type` VAE with the reference's initialisation, drawn
     from `generator` (disvae_tpu vae.py:21-37)."""
     model_type = model_type.lower().capitalize()
     if model_type not in MODELS:
         raise ValueError("Unknown model_type={}. Possible values: {}"
                          .format(model_type, MODELS))
-    model = VAE(tuple(img_size), latent_dim, model_type)
+    model = VAE(tuple(img_size), latent_dim, model_type, compute_dtype)
     weights_init(model, generator)
     return model.to(device) if device is not None else model
 
@@ -33,23 +35,32 @@ def init_specific_model(model_type, img_size, latent_dim, generator=None,
 class VAE(nn.Module):
     """Burgess VAE over NHWC images; img_size metadata is (C, H, W)."""
 
-    def __init__(self, img_size, latent_dim=10, model_type="Burgess"):
+    def __init__(self, img_size, latent_dim=10, model_type="Burgess",
+                 compute_dtype="float32"):
         super().__init__()
         burgess._is_64(img_size)  # validates 32^2 / 64^2
+        if compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError("Unknown compute_dtype={}. Possible values: {}"
+                             .format(compute_dtype, COMPUTE_DTYPES))
         self.img_size = tuple(img_size)
         self.latent_dim = latent_dim
         self.model_type = model_type
+        self.compute_dtype = compute_dtype
         self.encoder = burgess.Encoder(img_size, latent_dim)
         self.decoder = burgess.Decoder(img_size, latent_dim)
 
+    def _autocast(self, t):
+        return torch.autocast(t.device.type, dtype=torch.bfloat16,
+                              enabled=self.compute_dtype == "bfloat16")
+
     def encode(self, x):
         """(N, H, W, C) -> (mu, logvar), each (N, latent_dim)."""
-        with precision.autocast(x.device.type):
+        with self._autocast(x):
             return self.encoder(x)
 
     def decode(self, z):
         """(N, latent_dim) -> (N, H, W, C) in (0, 1)."""
-        with precision.autocast(z.device.type):
+        with self._autocast(z):
             return self.decoder(z)
 
     def reparameterize(self, mean, logvar, generator=None, eps=None):

@@ -15,15 +15,17 @@ transposed and flipped in space (utils/torch_compat.py).
   on Hopper and what the design does about it). Each counts its launches
   in `.launches`, and in `.captured` those made while the stream captures
   a CUDA graph (they run once per replay of the graph, not at the call).
-* `convt3_bwd(x, w, dy)` -> (dx, dw, db): the plain version for CPU
-  tensors, the kernels for CUDA tensors (or it raises; nothing falls back).
-  `.calls` counts its calls on either device.
-  The operand dtype is x's (float32 or bfloat16, dy the same); dw and db
-  come back in w's dtype, dx in x's.
+* `convt3_bwd(x, w, dy, cdt=None)` -> (dx, dw, db): the plain version for
+  CPU tensors, the kernels for CUDA tensors (or it raises; nothing falls
+  back). `.calls` counts its calls on either device. The products take
+  `cdt`-rounded operands (x's dtype when None: float32 or bfloat16, dy the
+  same) and sum in float32; dw and db come back in w's dtype, dx in x's,
+  and db is summed from dy as given (`convt3_bwd_pl`'s contract).
 * `ConvTranspose3Final` / `conv_transpose2d_pl` — the autograd wrapper:
-  the forward is `F.conv_transpose2d`, bit-identical to the module's; the
-  backward runs `convt3_bwd` under the ``default`` precision policy and
-  autograd's exact convolution backward under ``highest``/``high``.
+  the forward is the decoder's own final transposed conv under the
+  policy (ops/precision.py); the backward runs `convt3_bwd` under the
+  ``default`` policy and autograd's exact convolution backward under
+  ``highest``/``high``.
 """
 
 import ctypes
@@ -257,16 +259,20 @@ convt3_dw.launches = convt3_dw.captured = 0
 convt3_dx.launches = convt3_dx.captured = 0
 
 
-def convt3_bwd(x, w, dy):
-    """(dx, dw, db) of the k4 s2 p1 transposed conv. CPU tensors take
-    `convt3_bwd_plain` with x's dtype as the operand dtype; CUDA tensors
-    launch K1 and K2. dx comes back in x's dtype, dw and db in w's."""
+def convt3_bwd(x, w, dy, cdt=None):
+    """(dx, dw, db) of the k4 s2 p1 transposed conv on `cdt`-rounded
+    operands (x's dtype when None), summed in float32. CPU tensors take
+    `convt3_bwd_plain`; CUDA tensors launch K1 and K2 on x and dy in `cdt`.
+    dx comes back in x's dtype, dw and db in w's; db is summed from dy as
+    given, unrounded (disvae_tpu/ops/pallas_convt_bwd.py:138-198)."""
     _check(x, w, dy)
+    cdt = x.dtype if cdt is None else cdt
     convt3_bwd.calls += 1
     if x.device.type == "cpu":
-        return convt3_bwd_plain(x, w, dy, cdt=x.dtype)
-    dw = convt3_dw(x, dy).to(w.dtype)
-    dx = convt3_dx(dy, w)
+        return convt3_bwd_plain(x, w, dy, cdt=cdt)
+    dy_c = dy.to(cdt)
+    dw = convt3_dw(x.to(cdt), dy_c).to(w.dtype)
+    dx = convt3_dx(dy_c, w, out_dtype=x.dtype)
     db = dy.sum(dim=(0, 2, 3), dtype=torch.float32).to(w.dtype)
     return dx, dw, db
 
@@ -275,17 +281,34 @@ convt3_bwd.calls = 0
 
 
 class ConvTranspose3Final(torch.autograd.Function):
-    """F.conv_transpose2d(x, w, b, stride=2, padding=1) whose backward is
-    `convt3_bwd` under the ``default`` policy (disvae_tpu/ops/
-    pallas_convt_bwd.py `conv2d_transpose_pl`, :215-239). Under
-    ``highest``/``high`` the backward is autograd's own convolution
-    backward on the same arguments, so the grads are bitwise those of the
-    plain transposed conv."""
+    """The k4 s2 p1 transposed conv whose backward is `convt3_bwd` under
+    the ``default`` policy (disvae_tpu/ops/pallas_convt_bwd.py
+    `conv2d_transpose_pl`, :215-239).
+
+    * float32 x under ``default``: the forward is `precision.
+      conv_transpose2d`'s (bf16-rounded x and w, float32 sums and output,
+      the bias added in float32); the backward is K1/K2 on bf16 x and dy
+      with float32 dx and dw, and db summed from the float32 dy, as
+      JAX's `convt3_bwd_pl` computes it on a TPU.
+    * bf16 x (the bf16 compute dtype's autocast) under ``default``: the
+      forward is F.conv_transpose2d in autocast, bf16 out; the backward
+      K1/K2 in bf16, with dx in bf16.
+    * ``highest``/``high``: F.conv_transpose2d, and autograd's own
+      convolution backward on the same arguments, so the grads are
+      bitwise those of the plain transposed conv."""
 
     @staticmethod
     def forward(ctx, x, w, b):
-        ctx.save_for_backward(x, w)
         ctx.bias_shape = None if b is None else tuple(b.shape)
+        ctx.cdt = None
+        if precision.current() == "default" and x.dtype == torch.float32:
+            ctx.cdt = torch.bfloat16
+            x = precision.round_bf16(x)
+            ctx.save_for_backward(x, w)
+            y = F.conv_transpose2d(x, precision.round_bf16(w), None,
+                                   stride=2, padding=1)
+            return y if b is None else y + b.view(-1, 1, 1)
+        ctx.save_for_backward(x, w)
         return F.conv_transpose2d(x, w, b, stride=2, padding=1)
 
     @staticmethod
@@ -297,10 +320,12 @@ class ConvTranspose3Final(torch.autograd.Function):
             return torch.ops.aten.convolution_backward(
                 dy, x, w, ctx.bias_shape, [2, 2], [1, 1], [1, 1], True,
                 [0, 0], 1, mask)
-        # under autocast the forward ran in bf16: x and dy are bf16, w is
-        # the float32 master weight
+        # float32 x: the bf16-rounded activation and the float32 dy, K1/K2
+        # on bf16 copies, dx in float32. bf16 x (autocast): dy to bf16.
+        if ctx.cdt is None:
+            dy = dy.to(x.dtype)
         dx, dw, db = convt3_bwd(x.contiguous(), w.contiguous(),
-                                dy.to(x.dtype).contiguous())
+                                dy.contiguous(), cdt=ctx.cdt)
         return dx, dw, (db if ctx.bias_shape is not None else None)
 
 

@@ -6,42 +6,184 @@
   convs add with atomics, so two decodes of one latent differed in the
   last bit on an H100). Parity comparisons and the evaluation CLI run
   here, reproducible run to run as the JAX package is.
-* ``high`` — TF32 tensor-core passes for float32 matmuls and convs.
-* ``default`` — bf16 autocast around the model's forward (`autocast`
-  below); the model casts its outputs back to float32, so losses and
-  metrics stay in float32.
+* ``high`` — TF32 tensor-core passes for float32 matmuls and convs,
+  cuDNN's own algorithm choice.
+* ``default`` — what the JAX CLI's ``--precision default`` computes on a
+  TPU, where a float32 conv or dot is one bf16 MXU pass: every conv,
+  transposed conv and linear of the model (`conv2d`, `conv_transpose2d`,
+  `linear` below, and the modules `Conv2d`, `ConvTranspose2d`, `Linear`
+  that call them) rounds its activation and weight to bf16 values, sums
+  the products in float32 and adds the bias in float32; its backward
+  rounds the incoming cotangent to bf16 as the operand of dgrad and wgrad
+  and sums db from the float32 cotangent. Every tensor stays float32, and
+  everything else (ReLU, reparameterisation, sigmoid, losses, Adam) runs
+  in float32. The layers run with TF32 allowed: a bf16 value is exact in
+  TF32, so the tensor cores multiply the rounded operands exactly and sum
+  in float32, as an MXU pass does. cuDNN's algorithms are deterministic
+  as under ``highest`` (otherwise its TF32 dgrad for a 1- or 3-channel
+  input is not repeatable on an H100), so a CUDA graph of the step
+  replays the eager step bit for bit.
 
-The CLI exposes this as ``--precision``.
+JAX's other bf16 mode, ``compute_dtype="bfloat16"`` (bf16 activations,
+weights and outputs), is `models.vae.VAE(compute_dtype="bfloat16")`,
+which runs the model in bf16 autocast under any policy; inside autocast
+the helpers below are the plain calls.
+
+The CLI exposes the policy as ``--precision``.
 """
 
 import torch
+import torch.nn.functional as F
+from torch import nn
 
 PRECISIONS = ["highest", "high", "default"]
+# what each policy computes in a conv, transposed conv or linear of the
+# model (evidence.py records it beside a run)
+NUMERICS = {
+    "highest": "float32 operands and sums",
+    "high": "TF32 operands, float32 sums",
+    "default": "bf16-rounded operands, float32 sums, outputs and "
+               "activations (JAX's default on a TPU)"}
 
-# torch's float32 matmul setting stands for the policy: "medium" (bf16
-# internal precision) marks ``default``.
-_MATMUL = {"highest": "highest", "high": "high", "default": "medium"}
+_policy = "highest"
 
 
 def configure(precision="highest"):
     """Set the process-wide float32 matmul/conv precision."""
+    global _policy
     if precision not in PRECISIONS:
         raise ValueError("Unknown precision: {} (choose from {})".format(
             precision, PRECISIONS))
     tf32 = precision != "highest"
     torch.backends.cuda.matmul.allow_tf32 = tf32
     torch.backends.cudnn.allow_tf32 = tf32
-    torch.backends.cudnn.deterministic = not tf32
-    torch.set_float32_matmul_precision(_MATMUL[precision])
+    torch.backends.cudnn.deterministic = precision != "high"
+    torch.set_float32_matmul_precision("high" if tf32 else "highest")
+    _policy = precision
 
 
 def current():
     """The policy `configure` last set (``highest`` before any call)."""
-    return {v: k for k, v in _MATMUL.items()}.get(
-        torch.get_float32_matmul_precision(), "highest")
+    return _policy
 
 
-def autocast(device_type):
-    """bf16 autocast context under ``default``; a disabled one otherwise."""
-    return torch.autocast(device_type, dtype=torch.bfloat16,
-                          enabled=current() == "default")
+def round_bf16(t):
+    """`t`'s values rounded to the nearest bf16, in `t`'s dtype."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+# A k4 conv with at most this many input (conv) or output (transposed
+# conv) channels takes its weight gradient with TF32 off: on the H100
+# cuDNN's TF32 wgrad for conv1 / the final transposed conv (Cin or Cout 1
+# or 3) sums its N*H*W products in one long float32 chain, 1.1e-5 to
+# 6.4e-5 of scale off float64 at b64, against 1.5e-7 to 3.2e-7 for its
+# float32 kernel (chip_smoke.py phase 19). Products of bf16 values are
+# exact in either, so the function is the same. The 32-channel layers
+# keep TF32, 0.026 ms against 0.50 ms for the float32 kernel.
+THIN_CHANNELS = 4
+
+
+def _conv_backward(dy, x, w, kind, stride, padding, mask):
+    thin = min(w.shape[0], w.shape[1]) <= THIN_CHANNELS
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = tf32 and not (thin and mask[1])
+    try:
+        dx, dw, _ = torch.ops.aten.convolution_backward(
+            dy, x, w, None, [stride] * 2, [padding] * 2, [1, 1],
+            kind == "convT", [0, 0], 1, mask + [False])
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    return dx, dw
+
+
+class _Bf16Layer(torch.autograd.Function):
+    """A conv, transposed conv or linear (`kind`) without bias on bf16-
+    rounded operands: x and w rounded to bf16 values, float32 sums and
+    output. The backward rounds the incoming cotangent to bf16 values as
+    the operand of dgrad and wgrad and returns float32 dx and dw for x and
+    w (straight through their rounding)."""
+
+    @staticmethod
+    def forward(ctx, x, w, kind, stride, padding):
+        x, w = round_bf16(x), round_bf16(w)
+        ctx.save_for_backward(x, w)
+        ctx.layer = (kind, stride, padding)
+        if kind == "linear":
+            return F.linear(x, w)
+        op = F.conv2d if kind == "conv" else F.conv_transpose2d
+        return op(x, w, None, stride=stride, padding=padding)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        kind, stride, padding = ctx.layer
+        dy = round_bf16(dy)
+        mask = list(ctx.needs_input_grad[:2])
+        if kind != "linear":
+            dx, dw = _conv_backward(dy, x, w, kind, stride, padding, mask)
+            return dx, dw, None, None, None
+        dy2 = dy.reshape(-1, dy.shape[-1])
+        dx = dy @ w if mask[0] else None
+        dw = dy2.t() @ x.reshape(-1, x.shape[-1]) if mask[1] else None
+        return dx, dw, None, None, None
+
+
+def _rounds(x):
+    """Whether a layer on `x` runs the ``default`` numerics: float32
+    operands outside autocast, under the ``default`` policy."""
+    return (_policy == "default" and x.dtype == torch.float32
+            and not torch.is_autocast_enabled(x.device.type))
+
+
+def _layer(kind, x, w, b, stride=1, padding=0):
+    """The bias is added in float32 after the sums, so autograd sums db
+    from the float32 cotangent."""
+    y = _Bf16Layer.apply(x, w, kind, stride, padding)
+    if b is None:
+        return y
+    return y + (b if kind == "linear" else b.view(-1, 1, 1))
+
+
+def conv2d(x, w, b, stride=2, padding=1):
+    """F.conv2d under the policy (NCHW; torch's weight layout)."""
+    if not _rounds(x):
+        return F.conv2d(x, w, b, stride=stride, padding=padding)
+    return _layer("conv", x, w, b, stride, padding)
+
+
+def conv_transpose2d(x, w, b, stride=2, padding=1):
+    """F.conv_transpose2d under the policy."""
+    if not _rounds(x):
+        return F.conv_transpose2d(x, w, b, stride=stride, padding=padding)
+    return _layer("convT", x, w, b, stride, padding)
+
+
+def linear(x, w, b):
+    """F.linear under the policy (w is (out, in), as nn.Linear's)."""
+    if not _rounds(x):
+        return F.linear(x, w, b)
+    return _layer("linear", x, w, b)
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d whose forward is `conv2d` (same parameters and names)."""
+
+    def forward(self, x):
+        return conv2d(x, self.weight, self.bias, self.stride[0],
+                      self.padding[0])
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """nn.ConvTranspose2d (no output padding) whose forward is
+    `conv_transpose2d`."""
+
+    def forward(self, x):
+        return conv_transpose2d(x, self.weight, self.bias, self.stride[0],
+                                self.padding[0])
+
+
+class Linear(nn.Linear):
+    """nn.Linear whose forward is `linear`."""
+
+    def forward(self, x):
+        return linear(x, self.weight, self.bias)

@@ -41,8 +41,9 @@ from functools import partial
 import numpy as np
 import torch
 import torch.distributed as dist
-import torch.nn.functional as F
 from torch import nn
+
+from disvae_tpu_torch.ops import precision
 
 # torch 2.13 renamed the single-tensor collectives and deprecated the old
 # names; older releases (2.11 on the GPU machine) have only those
@@ -329,8 +330,9 @@ class ColumnParallelLinear(nn.Module):
     """A Linear layer whose output units are split evenly over the model
     group: `weight` holds this rank's rows of the whole (out, in) weight,
     `bias` the whole replicated bias. The forward computes this rank's
-    columns with their bias, as nn.Linear computes them (one addmm), and
-    gathers all of them, so every model rank returns the whole (B, out)
+    columns with their bias, as the policy's `linear` computes them
+    (ops/precision.py; under `highest`/`high` one addmm), and gathers all
+    of them, so every model rank returns the whole (B, out)
     output."""
 
     def __init__(self, weight, bias, mesh):
@@ -344,8 +346,8 @@ class ColumnParallelLinear(nn.Module):
     def forward(self, x):
         rows = self.weight.shape[0]
         lo = self.model_rank * rows
-        y = F.linear(_CopyToModel.apply(x, self.group), self.weight,
-                     self.bias.detach()[lo:lo + rows])
+        y = precision.linear(_CopyToModel.apply(x, self.group), self.weight,
+                             self.bias.detach()[lo:lo + rows])
         y = _GatherColumns.apply(y, self.group, self.model_size,
                                  self.model_rank)
         # The bias's value is in y already; adding it minus itself adds

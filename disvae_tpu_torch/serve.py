@@ -103,8 +103,9 @@ def export_artifacts(directory, batch_size=64, out_dir=None, device=None):
     """Export the trained encoder ((B, H, W, C) -> (mu, logvar)) and decoder
     ((B, latent_dim) -> (B, H, W, C)) of a results directory at batch
     `batch_size` on `device` (CUDA when None, raising when no GPU is
-    visible), traced under the `highest` precision policy (float32, no
-    autocast), as `encoder.pt2` and `decoder.pt2`. Returns their paths."""
+    visible), traced under the `highest` precision policy (float32, the
+    plain convs), as `encoder.pt2` and `decoder.pt2`. Returns their
+    paths."""
     if device is None:
         device = get_device(False)
     model = load_model(directory, device=device)

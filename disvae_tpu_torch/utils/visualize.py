@@ -6,8 +6,8 @@ Counterpart of disvae_tpu/utils/visualize.py (`Visualizer`,
 filenames and geometry. Each plot is one batched decode on the model's
 device and the posterior gif one encode plus one decode; encodes and
 decodes run in eval mode under `torch.no_grad()`, leave the model in the
-mode they found it in, and copy to the host once per plot. Under the
-``default`` precision policy they run in the model's own bf16 autocast.
+mode they found it in, and copy to the host once per plot, under the
+process's precision policy (ops/precision.py).
 
 The prior draws of `generate_samples` come from a CPU `torch.Generator`
 seeded with `np.random.randint(0, 2**31)`, the numpy draw the JAX

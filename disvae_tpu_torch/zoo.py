@@ -24,14 +24,18 @@ loss, recon_loss and kl_loss (and their gaps to JAX's), the lowest epoch
 loss over epoch 0's, the test loss, the optimizer steps, K1's and K2's
 executions and the profiled epoch's device events, the legs' seconds, the
 images/sec quartiles over the steady epochs (every epoch but epoch 0 and
-the profiled one) and the step ms at their median, and the device's busy
-ms a step in the profiled epoch, with its share of that step.
+the profiled one) and the step ms at their median, the device's busy ms a
+step in the profiled epoch, with its share of that step, and how many
+latents carry more than 1 nat of KL at epochs 0, 5, 10, 25, every 50th
+and the last, beside JAX's. `--report` also reads sets of a run at
+another seed, named `<run name without _h100>_s<seed>_h100`.
 """
 
 import argparse
 import collections
 import json
 import os
+import re
 import shlex
 import statistics
 import subprocess
@@ -43,6 +47,8 @@ from disvae_tpu_torch.evidence import FINAL_CONVT
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARTIFACTS = os.path.join(REPO, "artifacts")
 SEED = 1234
+# a latent is active in an epoch whose mean KL in it exceeds this (nats)
+ACTIVE_NATS = 1.0
 # what every run adds to its train leg, and to the evidence CLI
 TRAIN_FLAGS = "--no-viz-gif --precision default"
 EVIDENCE_FLAGS = ["--skip-metrics", "--profile-epoch", "1"]
@@ -136,12 +142,22 @@ def _epoch_means(path):
     return out
 
 
+def active_latents(means, epochs):
+    """{epoch: how many latents carry more than ACTIVE_NATS of KL} at
+    `epochs` (those the log has), from `_epoch_means`' kl_loss_<i>."""
+    keys = [k for k in means if re.fullmatch(r"kl_loss_\d+", k)]
+    return {e: sum(means[k][e] > ACTIVE_NATS for k in keys)
+            for e in epochs if e in means["loss"]}
+
+
 def summarize(out_dir, run=None):
     """The summary of the evidence set in `out_dir` beside its JAX run
-    (`run`, or the RUNS entry its specs name, `_cudnn` stripped)."""
+    (`run`, or the RUNS entry its specs name, `_cudnn` and a seed's
+    `_s<seed>` stripped)."""
     with open(os.path.join(out_dir, "specs.json")) as f:
         specs = json.load(f)
-    run = run or BY_NAME[specs["name"].replace("_cudnn", "")]
+    run = run or BY_NAME[re.sub(r"_s\d+(?=_h100)", "", specs["name"]
+                                .replace("_cudnn", ""))]
     ours = _epoch_means(os.path.join(out_dir, "train_losses.log"))
     ref = _epoch_means(os.path.join(ARTIFACTS, run.jax_run,
                                     "train_losses.log"))
@@ -155,6 +171,9 @@ def summarize(out_dir, run=None):
             s["jax_{}_{}".format(tag, key)] = ref[key][epoch]
         s["last_{}_gap".format(key)] = (ours[key][last] / ref[key][last]
                                         - 1)
+    epochs = sorted({0, 5, 10, 25, last} | set(range(50, last, 50)))
+    s["active_latents"] = active_latents(ours, epochs)
+    s["jax_active_latents"] = active_latents(ref, epochs)
     for tag, d in (("", out_dir), ("jax_", os.path.join(ARTIFACTS,
                                                          run.jax_run))):
         with open(os.path.join(d, "test_losses.log")) as f:

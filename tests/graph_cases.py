@@ -39,9 +39,11 @@ def loss_config(loss, n_data=N_DSPRITES):
     return lr, get_loss_f(loss, n_data=n_data, **dict(BASE, **kwargs))
 
 
-def train_state(loss, device, img_size=(1, 64, 64), seed=0):
-    """(loss config, TrainState) seeded from `seed`: the model, its Adam,
-    FactorVAE's discriminator and its Adam, the noise generator."""
+def train_state(loss, device, img_size=(1, 64, 64), seed=0,
+                compute_dtype="float32"):
+    """(loss config, TrainState) seeded from `seed`: the model (of
+    `compute_dtype`, models/vae.py), its Adam, FactorVAE's discriminator
+    and its Adam, the noise generator."""
     from disvae_tpu_torch.models.discriminator import Discriminator
     from disvae_tpu_torch.models.vae import init_specific_model
     from disvae_tpu_torch.train.state import create_train_state
@@ -50,7 +52,8 @@ def train_state(loss, device, img_size=(1, 64, 64), seed=0):
     lr, cfg = loss_config(loss)
     model = init_specific_model(
         "Burgess", img_size, 10,
-        generator=torch.Generator().manual_seed(seed), device=device)
+        generator=torch.Generator().manual_seed(seed), device=device,
+        compute_dtype=compute_dtype)
     disc = disc_optimizer = None
     if cfg.needs_discriminator:
         disc = Discriminator(latent_dim=10, generator=torch.Generator()
@@ -80,13 +83,15 @@ def run(step, state, wire, idx, k):
                       for i in range(0, len(idx), k)])
 
 
-def graph_against_eager(loss, wire, idx, k, img_size=(1, 64, 64)):
+def graph_against_eager(loss, wire, idx, k, img_size=(1, 64, 64),
+                        compute_dtype="float32"):
     """Super-steps of `k` steps over the rows of `idx`, eagerly and
     graphed, each from the same seed: (eager metrics, graphed metrics,
     eager state, graphed state, the graphed super-step)."""
     out = []
     for graph in (False, True):
-        cfg, state = train_state(loss, wire.device, img_size)
+        cfg, state = train_state(loss, wire.device, img_size,
+                                 compute_dtype=compute_dtype)
         step = super_step(cfg, state, k, graph)
         out.append((run(step, state, wire, idx, k), state, step))
     torch.cuda.synchronize()

@@ -9,7 +9,8 @@ package's, on seeded numpy inputs.
   bound of test_models.py's bf16-policy check (bf16 keeps 8 mantissa bits).
 * `conv_transpose2d_pl` under ``highest``: forward and all three grads
   bitwise equal to F.conv_transpose2d's; under ``default`` the backward
-  is `convt3_bwd` (on the CPU its plain version).
+  is `convt3_bwd` (on the CPU its plain version): on bf16-rounded float32
+  operands with float32 dx, or in bf16 inside autocast.
 """
 
 import jax
@@ -294,9 +295,36 @@ def test_autograd_wrapper_bitwise_under_parity(policy):
 
 
 def test_autograd_wrapper_default_policy_runs_convt3_bwd(policy):
-    """Under ``default`` (bf16 autocast) the backward is `convt3_bwd` on the
-    bf16 operands: dx in bf16, dw and db in float32, each equal to the
-    plain version on the same operands."""
+    """Under ``default`` on float32 tensors the forward is the policy's
+    transposed conv (bf16-rounded x and w, float32 sums, output and bias)
+    and the backward is `convt3_bwd` on the bf16-rounded x and dy: dx, dw
+    and db in float32, dx and dw equal to the plain version on the same
+    operands, db the sum of the float32 dy."""
+    policy("default")
+    _, t = _inputs(5, 2, 8, 32, 3)
+    target = torch.from_numpy(
+        np.random.RandomState(4).randn(2, 3, 16, 16).astype(np.float32))
+    b = torch.from_numpy(np.random.RandomState(2).randn(3).astype(np.float32))
+    x = t["x"].clone().requires_grad_()
+    w = t["w"].clone().requires_grad_()
+    bb = b.clone().requires_grad_()
+    y = P.conv_transpose2d_pl(x, w, bb)
+    y_ref = precision.conv_transpose2d(x, w, bb)
+    assert y.dtype == torch.float32 and torch.equal(y, y_ref)
+    y.backward(target)
+    dx, dw, _ = P.convt3_bwd_plain(precision.round_bf16(x.detach()),
+                                   w.detach(), target, torch.bfloat16)
+    assert x.grad.dtype == w.grad.dtype == bb.grad.dtype == torch.float32
+    assert torch.equal(x.grad, dx) and torch.equal(w.grad, dw)
+    assert torch.equal(bb.grad, target.sum(dim=(0, 2, 3)))
+
+
+def test_autograd_wrapper_bf16_compute_dtype_runs_convt3_bwd_in_bf16(
+        policy):
+    """Under ``default`` inside bf16 autocast (the bf16 compute dtype,
+    models/vae.py) the backward is `convt3_bwd` on the bf16 operands: dx
+    in bf16, dw and db in float32, each equal to the plain version on the
+    same operands."""
     policy("default")
     _, t = _inputs(5, 2, 8, 32, 3)
     target = torch.from_numpy(
@@ -305,7 +333,7 @@ def test_autograd_wrapper_default_policy_runs_convt3_bwd(policy):
     x = t["x"].bfloat16().requires_grad_()
     w = t["w"].clone().requires_grad_()
     bb = b.clone().requires_grad_()
-    with precision.autocast("cpu"):
+    with torch.autocast("cpu", dtype=torch.bfloat16):
         y = P.conv_transpose2d_pl(x, w, bb)
         y_ref = F.conv_transpose2d(x, w, bb, stride=2, padding=1)
     assert y.dtype == torch.bfloat16 and torch.equal(y, y_ref)

@@ -22,6 +22,7 @@ from graph_cases import LOSSES as GRAPH_LOSSES
 from graph_cases import (binary_wire, differences, graph_against_eager,
                          loss_config)
 from log_qz_cases import CARD_EDGE_CASES, log_qz_inputs
+from precision_cases import layer_against_float64, relative_errors
 
 ATOL = 1e-4
 
@@ -470,6 +471,109 @@ def test_graphed_super_step_with_hook_under_default(cuda):
     assert step.replays == 3 and launches == (24, 24)
     assert torch.equal(m_eager, m_graph)
     assert differences(s_eager, s_graph) == []
+
+
+def _mnist_wire(cuda, n=1024):
+    return torch.from_numpy(np.random.RandomState(2).randint(
+        0, 256, (n, 32, 32, 1)).astype(np.uint8)).to(cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("loss", GRAPH_LOSSES)
+def test_graphed_default_step_with_hook_is_the_eager_one(cuda, loss):
+    """Each loss at b64 mnist shapes under ``default`` (bf16-rounded
+    operands, float32 sums and activations) with the K1/K2 hook: four
+    K = 4 super-steps graphed equal four eager ones bit for bit
+    (``default`` keeps cuDNN's algorithms deterministic)."""
+    from disvae_tpu_torch.models import burgess
+    from disvae_tpu_torch.ops import convt_bwd as C
+    from disvae_tpu_torch.ops.precision import configure
+    idx = torch.from_numpy(np.random.RandomState(3).randint(
+        0, 1024, (16, 64))).to(cuda)
+    configure("default")
+    burgess.set_final_convt_impl(C.conv_transpose2d_pl)
+    try:
+        m_eager, m_graph, s_eager, s_graph, step = graph_against_eager(
+            loss, _mnist_wire(cuda), idx, 4, img_size=(1, 32, 32))
+    finally:
+        burgess.set_final_convt_impl(burgess.conv_transpose2d)
+        configure("highest")
+    assert step.replays == 3
+    assert torch.equal(m_eager, m_graph)
+    assert differences(s_eager, s_graph) == []
+
+
+@pytest.mark.gpu
+def test_graphed_bf16_compute_dtype_step_is_the_eager_one(cuda):
+    """betaB at b64 mnist shapes with the bf16 compute dtype (autocast)
+    under ``default`` with the hook (bf16 K1/K2): graphed = eager, bit for
+    bit."""
+    from disvae_tpu_torch.models import burgess
+    from disvae_tpu_torch.ops import convt_bwd as C
+    from disvae_tpu_torch.ops.precision import configure
+    idx = torch.from_numpy(np.random.RandomState(3).randint(
+        0, 1024, (16, 64))).to(cuda)
+    configure("default")
+    burgess.set_final_convt_impl(C.conv_transpose2d_pl)
+    try:
+        before = C.convt3_dx.launches
+        m_eager, m_graph, s_eager, s_graph, step = graph_against_eager(
+            "betaB", _mnist_wire(cuda), idx, 4, img_size=(1, 32, 32),
+            compute_dtype="bfloat16")
+        launches = C.convt3_dx.launches - before
+    finally:
+        burgess.set_final_convt_impl(burgess.conv_transpose2d)
+        configure("highest")
+    assert step.replays == 3 and launches == 24
+    assert torch.equal(m_eager, m_graph)
+    assert differences(s_eager, s_graph) == []
+
+
+# (name, kind, x shape, torch weight shape): the Burgess layers at the b64
+# mnist and chairs shapes whose sums run longest, and the discriminator's
+DEFAULT_LAYERS = [
+    ("conv1 chairs", "conv", (64, 1, 64, 64), (32, 1, 4, 4)),
+    ("conv1 celeba", "conv", (64, 3, 64, 64), (32, 3, 4, 4)),
+    ("conv2 chairs", "conv", (64, 32, 32, 32), (32, 32, 4, 4)),
+    ("convT2 chairs", "convT", (64, 32, 16, 16), (32, 32, 4, 4)),
+    ("convT3 mnist", "convT", (64, 32, 16, 16), (32, 1, 4, 4)),
+    ("convT3 chairs", "convT", (64, 32, 32, 32), (32, 1, 4, 4)),
+    ("convT3 chairs, hook", "hook", (64, 32, 32, 32), (32, 1, 4, 4)),
+    ("lin1", "linear", (64, 512), (256, 512)),
+    ("discriminator lin2", "linear", (64, 1000), (1000, 1000))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name, kind, xs, ws", DEFAULT_LAYERS,
+                         ids=[c[0] for c in DEFAULT_LAYERS])
+def test_default_layer_on_card_matches_float64(cuda, name, kind, xs, ws):
+    """One layer under ``default`` on the card: y, dx, dw and db within
+    1e-5 of scale of float64 on the same bf16-rounded x, w and cotangent
+    (db from the float32 cotangent), every output float32."""
+    from disvae_tpu_torch.ops import convt_bwd as C
+    from disvae_tpu_torch.ops import precision as P
+    rng = np.random.RandomState(5)
+    fn = {"conv": P.conv2d, "convT": P.conv_transpose2d,
+          "hook": C.conv_transpose2d_pl, "linear": P.linear}[kind]
+    x = torch.from_numpy(np.maximum(rng.randn(*xs), 0).astype(
+        np.float32)).to(cuda)
+    w = torch.from_numpy((0.1 * rng.randn(*ws)).astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.randn(ws[1] if kind in ("convT", "hook")
+                                   else ws[0]).astype(np.float32)).to(cuda)
+    out = ((xs[0], ws[0]) if kind == "linear" else
+           (xs[0], ws[0], xs[2] // 2, xs[3] // 2) if kind == "conv" else
+           (xs[0], ws[1], 2 * xs[2], 2 * xs[3]))
+    g = torch.from_numpy(rng.randn(*out).astype(np.float32)).to(cuda)
+    P.configure("default")
+    try:
+        pairs = layer_against_float64("convT" if kind == "hook" else kind,
+                                      fn, x, w, b, g)
+    finally:
+        P.configure("highest")
+    for k, (_, got) in pairs.items():
+        assert got.dtype == torch.float32, k
+    for k, err in relative_errors(pairs).items():
+        assert err <= 1e-5, (name, k, err)
 
 
 @pytest.mark.gpu

@@ -133,14 +133,15 @@ def test_port_never_imports_jax():
 
 @pytest.mark.parametrize("policy", ["highest", "high", "default"])
 def test_precision_policies(policy):
-    """Each policy's backend flags; under `default` the forward runs in
-    bf16 autocast and still returns float32 (bf16 keeps ~3 significant
-    digits, hence the 5e-2 bound against the float32 forward)."""
+    """Each policy's backend flags; under `default` the layers take
+    bf16-rounded operands and the forward still returns float32 (bf16
+    keeps ~3 significant digits, hence the 5e-2 bound against the float32
+    forward)."""
     from disvae_tpu_torch.ops import precision
     saved = (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32,
              torch.backends.cudnn.deterministic,
-             torch.get_float32_matmul_precision())
+             torch.get_float32_matmul_precision(), precision.current())
     _, _, port = _pair((1, 32, 32), 4)
     x = torch.from_numpy(
         np.random.RandomState(2).rand(3, 32, 32, 1).astype(np.float32))
@@ -152,12 +153,13 @@ def test_precision_policies(policy):
         tf32 = policy != "highest"
         assert torch.backends.cuda.matmul.allow_tf32 == tf32
         assert torch.backends.cudnn.allow_tf32 == tf32
-        assert torch.backends.cudnn.deterministic == (not tf32)
+        assert torch.backends.cudnn.deterministic == (policy != "high")
         with torch.no_grad():
             recon, (mu, logvar), _ = port(x)
         assert recon.dtype == mu.dtype == logvar.dtype == torch.float32
         np.testing.assert_allclose(recon.numpy(), ref.numpy(), atol=5e-2)
     finally:
+        precision.configure(saved[4])
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32,
          torch.backends.cudnn.deterministic) = saved[:3]

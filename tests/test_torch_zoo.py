@@ -143,7 +143,7 @@ CONVT_PER_STEP = 1
 # the declared sets that met the gate, committed as artifacts/<name>/
 COMMITTED = ["VAE_chairs_h100", "btcvae_chairs_h100", "VAE_mnist_full_h100",
              "betaH_fashion_full_h100", "betaH_mnist_h100", "btcvae_mnist_h100",
-             "factor_mnist_full_h100"]
+             "factor_mnist_full_h100", "betaB_mnist_h100"]
 PLOTS = ("samples.png", "data_samples.png", "reconstruct.png",
          "prior_traversals.png", "reconstruct_traverse.png",
          "posterior_traversals.gif", "test_losses.log", "MANIFEST.txt")
