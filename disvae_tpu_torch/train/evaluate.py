@@ -39,6 +39,14 @@ evaluator's order, evaluates its S/W of them against all M mixture
 components, and one all-reduce per sweep sums the float64 (L, D)
 partials. The first-batch test-loss pass is not split (every rank
 computes the same numbers), and rank 0 alone writes the files.
+
+While a profiler records, the eval shows its host work as spans
+(utils/trace.py): `eval` around a call, `eval.encode` and `eval.entropy`
+around the two phases `last_metrics_timings` times, `eval.feed` and
+`eval.copy_in` around making and copying each streamed encode batch,
+`eval.draw` around the sample draws and gather plans of the entropy
+sweeps, and `eval.sweep_fetch` around each chunk's copy to the host (and
+a mesh's all-reduce).
 """
 
 import logging
@@ -57,6 +65,7 @@ from disvae_tpu_torch.parallel.distributed import is_writer
 from disvae_tpu_torch.parallel.mesh import all_reduce_sum, gather_rows
 from disvae_tpu_torch.train.steps import _decompress_batch, make_eval_step
 from disvae_tpu_torch.utils.modelIO import save_metadata
+from disvae_tpu_torch.utils.trace import span
 
 TEST_LOSSES_FILE = "test_losses.log"
 METRICS_FILENAME = "metrics.log"
@@ -160,24 +169,25 @@ class Evaluator:
         return True
 
     def __call__(self, data_loader, is_metrics=False, is_losses=True):
-        start = default_timer()
-        metrics, losses = None, None
-        if is_metrics:
-            self.logger.info("Computing metrics...")
-            metrics = self.compute_metrics(data_loader)
-            self.logger.info("Metrics: {}".format(metrics))
-            if is_writer():
-                save_metadata(metrics, self.save_dir,
-                              filename=METRICS_FILENAME)
-        if is_losses:
-            self.logger.info("Computing losses...")
-            losses = self.compute_losses(data_loader)
-            self.logger.info("Losses: {}".format(losses))
-            if is_writer():
-                save_metadata(losses, self.save_dir,
-                              filename=TEST_LOSSES_FILE)
-        self.logger.info("Finished evaluating after {:.1f} min.".format(
-            (default_timer() - start) / 60))
+        with span("eval"):
+            start = default_timer()
+            metrics, losses = None, None
+            if is_metrics:
+                self.logger.info("Computing metrics...")
+                metrics = self.compute_metrics(data_loader)
+                self.logger.info("Metrics: {}".format(metrics))
+                if is_writer():
+                    save_metadata(metrics, self.save_dir,
+                                  filename=METRICS_FILENAME)
+            if is_losses:
+                self.logger.info("Computing losses...")
+                losses = self.compute_losses(data_loader)
+                self.logger.info("Losses: {}".format(losses))
+                if is_writer():
+                    save_metadata(losses, self.save_dir,
+                                  filename=TEST_LOSSES_FILE)
+            self.logger.info("Finished evaluating after {:.1f} min.".format(
+                (default_timer() - start) / 60))
         return metrics, losses
 
     def compute_losses(self, dataloader):
@@ -215,28 +225,31 @@ class Evaluator:
                         lat_sizes.tolist()))
 
         self.logger.info("Computing the empirical distribution q(z|x).")
-        t0 = default_timer()
-        raw_before = getattr(dataloader, "raw", None)
-        try:
-            if raw_before is not None and hasattr(dataloader.dataset,
-                                                  "get_batch_raw"):
-                # full-dataset encode: ship wire-format batches (bitpacked
-                # for binary datasets); the encode decompresses on device
-                dataloader.raw = True
-            samples_zCx, params_zCx = self._compute_q_zCx(dataloader)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-        finally:
-            if raw_before is not None:
-                dataloader.raw = raw_before
-        t_encode = default_timer() - t0
+        with span("eval.encode"):
+            t0 = default_timer()
+            raw_before = getattr(dataloader, "raw", None)
+            try:
+                if raw_before is not None and hasattr(dataloader.dataset,
+                                                      "get_batch_raw"):
+                    # full-dataset encode: ship wire-format batches
+                    # (bitpacked for binary datasets); the encode
+                    # decompresses on device
+                    dataloader.raw = True
+                samples_zCx, params_zCx = self._compute_q_zCx(dataloader)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+            finally:
+                if raw_before is not None:
+                    dataloader.raw = raw_before
+            t_encode = default_timer() - t0
 
         self.logger.info("Estimating the marginal entropy.")
-        t1 = default_timer()
-        H_z = self._estimate_latent_entropies(samples_zCx, params_zCx)
-        H_zCv = self._estimate_H_zCv(samples_zCx, params_zCx, lat_sizes,
-                                     lat_names)
-        t_entropy = default_timer() - t1
+        with span("eval.entropy"):
+            t1 = default_timer()
+            H_z = self._estimate_latent_entropies(samples_zCx, params_zCx)
+            H_zCv = self._estimate_H_zCv(samples_zCx, params_zCx, lat_sizes,
+                                         lat_names)
+            t_entropy = default_timer() - t1
         # both entropy results are host numpy by here, so both phases end
         # synchronized with the device
         self.last_metrics_timings = {"encode_seconds": t_encode,
@@ -313,12 +326,15 @@ class Evaluator:
             wire = self._resident.wire
             batches = (wire[i:min(i + B, hi)] for i in range(lo, hi, B))
         elif self.mesh is None:
-            batches = (self._to_device(x) for x, _ in dataloader)
+            loader = iter(dataloader)
+            batches = self._stream(lambda _: next(loader)[0],
+                                   range(len(dataloader)))
         else:
             get = ds.get_batch_raw if getattr(dataloader, "raw", False) \
                 else ds.get_batch
-            batches = (self._to_device(get(np.arange(i, min(i + B, hi)))[0])
-                       for i in range(lo, hi, B))
+            batches = self._stream(
+                lambda i: get(np.arange(i, min(i + B, hi)))[0],
+                range(lo, hi, B))
         D = self.model.latent_dim
         mus, logvars = [], []
         for x in batches:
@@ -339,14 +355,28 @@ class Evaluator:
         logvar = torch.cat(logvars)
         return mu, (mu, logvar)
 
+    def _stream(self, produce, keys):
+        """The streamed encode's batches on the device: for each key the
+        host batch `produce(key)` (the loader's gather and bit-packing)
+        under `eval.feed`, then its copy to the device under
+        `eval.copy_in`."""
+        for key in keys:
+            with span("eval.feed"):
+                x = produce(key)
+            with span("eval.copy_in"):
+                x = self._to_device(x)
+            yield x
+
     def _estimate_latent_entropies(self, samples_zCx, params_zCx,
                                    n_samples=10000):
         """H(z_j) = E_q(z_j)[-log q(z_j)] by Monte Carlo, q(z) the mixture
         over the encoded dataset. Returns (D,) float64."""
         M, D = samples_zCx.shape
         S = min(n_samples, M)
-        idx = self._np_rng.permutation(M)[:S]
-        selected = samples_zCx[torch.from_numpy(idx).to(self.device)]
+        with span("eval.draw"):
+            idx = torch.from_numpy(self._np_rng.permutation(M)[:S]).to(
+                self.device)
+        selected = samples_zCx[idx]
         if self.scramble_quirk:
             # the reference's .view(latent_dim, n_samples): row-major
             # reshape, NOT a transpose
@@ -371,8 +401,10 @@ class Evaluator:
                 "Estimating conditional entropies over the %s values of %s.",
                 lat_size, lat_name)
             # (lat_size, N / lat_size) gather plan: slice i of factor k
-            flat = torch.from_numpy(np.moveaxis(lattice, k, 0)
-                                    .reshape(lat_size, -1)).to(self.device)
+            with span("eval.draw"):
+                flat = torch.from_numpy(np.moveaxis(lattice, k, 0)
+                                        .reshape(lat_size, -1)).to(
+                                            self.device)
             H_k = self._estimate_latent_entropies_batched(
                 samples_zCx[flat], (mu[flat], logvar[flat]))  # (L, D)
             H_zCv[k] = H_k.mean(axis=0)
@@ -384,8 +416,10 @@ class Evaluator:
         independent mixtures. Returns (L, D) float64."""
         L, M, D = samples_zCx.shape
         S = min(n_samples, M)
-        idx = np.stack([self._np_rng.permutation(M)[:S] for _ in range(L)])
-        idx = torch.from_numpy(idx).to(self.device)
+        with span("eval.draw"):
+            idx = np.stack([self._np_rng.permutation(M)[:S]
+                            for _ in range(L)])
+            idx = torch.from_numpy(idx).to(self.device)
         selected = torch.gather(samples_zCx, 1,
                                 idx[:, :, None].expand(L, S, D))
         if self.scramble_quirk:
@@ -411,8 +445,11 @@ class Evaluator:
             v = values[:, :, s0:min(s0 + _SAMPLE_CHUNK, hi)].contiguous()
             lq = (log_qz_fast if self.fast_entropies else log_qz)(
                 v, mu, logvar)  # (L, D, s_chunk)
-            H += (log_M - lq.double()).sum(dim=2).cpu().numpy()
+            part = (log_M - lq.double()).sum(dim=2)
+            with span("eval.sweep_fetch"):
+                H += part.cpu().numpy()
         if self.mesh is not None:
-            H = all_reduce_sum(torch.from_numpy(H).to(self.device),
-                               self.mesh).cpu().numpy()
+            with span("eval.sweep_fetch"):
+                H = all_reduce_sum(torch.from_numpy(H).to(self.device),
+                                   self.mesh).cpu().numpy()
         return H / S

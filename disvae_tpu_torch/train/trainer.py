@@ -26,6 +26,13 @@ it whole.
 A global batch that does not divide the data axis (the ragged tail, or
 every batch when the batch size does not divide it) is padded and takes
 the mask-aware padded step.
+
+While a profiler records, the epoch loop shows its parts as spans
+(utils/trace.py): `train.epoch` per epoch, `train.dispatch` around the
+resident feed's enqueue of an epoch, `train.replay` around each whole
+super-step and `train.eager` around a short one or a single batch,
+`train.fetch` around the wait for an epoch's metrics and
+`train.checkpoint` around the writes of one.
 """
 
 import logging
@@ -51,6 +58,7 @@ from disvae_tpu_torch.train.steps import (GraphedSuperStep,
                                           make_train_step, stack_metrics)
 from disvae_tpu_torch.utils.helpers import derive_seeds
 from disvae_tpu_torch.utils.modelIO import save_model
+from disvae_tpu_torch.utils.trace import span
 
 TRAIN_LOSSES_LOGFILE = "train_losses.log"
 CKPT_FILE = "train_state.pt"
@@ -298,47 +306,53 @@ class Trainer:
 
         try:
             for epoch in range(start_epoch, epochs):
-                if use_pipeline:
-                    packed, base_step = self._dispatch_epoch_resident(
-                        data_loader)
-                    if pending is not None:
-                        _finish_epoch(pending)
-                    pending = (epoch, packed, base_step)
-                else:
-                    _log_epoch(epoch, *self._train_epoch(data_loader, epoch))
-                n_images += len(data_loader.dataset)
+                with span("train.epoch"):
+                    if use_pipeline:
+                        packed, base_step = self._dispatch_epoch_resident(
+                            data_loader)
+                        if pending is not None:
+                            _finish_epoch(pending)
+                        pending = (epoch, packed, base_step)
+                    else:
+                        _log_epoch(epoch,
+                                   *self._train_epoch(data_loader, epoch))
+                    n_images += len(data_loader.dataset)
 
-                # what reads the state (gif frame, checkpoint) waits for the
-                # device anyway, and the CSV must stay ahead of checkpoints
-                # (resume truncates rows >= the checkpoint epoch)
-                if pending is not None and (
-                        self.gif_visualizer is not None
-                        or epoch % checkpoint_every == 0
-                        or stop["flag"] or epoch == epochs - 1):
-                    _finish_epoch(pending)
-                    pending = None
-
-                if self.gif_visualizer is not None:
-                    self.gif_visualizer(self.model)
-
-                if epoch % checkpoint_every == 0:
-                    if self._is_writer:
-                        save_model(self.model, self.save_dir,
-                                   filename="model-{}.pt".format(epoch))
-                    self.save_checkpoint(epoch)
-
-                if stop["flag"]:
-                    if pending is not None:  # signal after the flush gate
+                    # what reads the state (gif frame, checkpoint) waits for
+                    # the device anyway, and the CSV must stay ahead of
+                    # checkpoints (resume truncates rows >= the checkpoint
+                    # epoch)
+                    if pending is not None and (
+                            self.gif_visualizer is not None
+                            or epoch % checkpoint_every == 0
+                            or stop["flag"] or epoch == epochs - 1):
                         _finish_epoch(pending)
                         pending = None
-                    self.save_checkpoint(epoch)
-                    self.logger.warning("Stopped by signal after epoch %d; "
-                                        "resume with --resume.", epoch)
-                    break
 
-                if pending is None:
-                    # epoch timing restarts after end-of-epoch host work
-                    self._epoch_anchor = default_timer()
+                    if self.gif_visualizer is not None:
+                        self.gif_visualizer(self.model)
+
+                    if epoch % checkpoint_every == 0:
+                        with span("train.checkpoint"):
+                            if self._is_writer:
+                                save_model(self.model, self.save_dir,
+                                           filename="model-{}.pt".format(
+                                               epoch))
+                            self.save_checkpoint(epoch)
+
+                    if stop["flag"]:
+                        if pending is not None:  # signal after the flush
+                            _finish_epoch(pending)
+                            pending = None
+                        self.save_checkpoint(epoch)
+                        self.logger.warning("Stopped by signal after epoch "
+                                            "%d; resume with --resume.",
+                                            epoch)
+                        break
+
+                    if pending is None:
+                        # epoch timing restarts after end-of-epoch host work
+                        self._epoch_anchor = default_timer()
             if pending is not None:
                 _finish_epoch(pending)
         finally:
@@ -469,34 +483,42 @@ class Trainer:
         loader's epoch order (the streaming feed's). Under a mesh each rank
         takes its columns of every global batch. Returns the packed
         metrics (their host copy already started) and the base step."""
-        base_step = self.state.step
-        wire = self._resident.wire
-        B = data_loader.batch_size
-        self._warn_batch_pad(B)
-        order = data_loader.epoch_order()
-        n = len(order)
-        if getattr(data_loader, "drop_last", False):
-            n -= n % B
-        n_full = n // B
-        rem = n - n_full * B
-        rows = []
-        if n_full and B % self._data_axis() == 0:
-            idx = order[:n_full * B].reshape(n_full, B)
-            if self.mesh is not None:  # this rank's columns
-                idx = np.ascontiguousarray(shard_batch(idx.T, self.mesh).T)
-            idx = torch.from_numpy(idx.astype(np.int64)).to(self.device)
-            k = self.steps_per_dispatch
-            for k0 in range(0, n_full, k):
-                rows.append(self._resident_step(self.state, wire,
-                                                idx[k0:k0 + k]))
-        else:
-            rows.extend(self._resident_batch(wire, order[i * B:(i + 1) * B])
-                        for i in range(n_full))
-        if rem and self._skip_tiny_tail(rem):
-            rem = 0
-        if rem:
-            rows.append(self._resident_batch(wire, order[n_full * B:n]))
-        return _pack_metrics(rows), base_step
+        with span("train.dispatch"):
+            base_step = self.state.step
+            wire = self._resident.wire
+            B = data_loader.batch_size
+            self._warn_batch_pad(B)
+            order = data_loader.epoch_order()
+            n = len(order)
+            if getattr(data_loader, "drop_last", False):
+                n -= n % B
+            n_full = n // B
+            rem = n - n_full * B
+            rows = []
+            if n_full and B % self._data_axis() == 0:
+                idx = order[:n_full * B].reshape(n_full, B)
+                if self.mesh is not None:  # this rank's columns
+                    idx = np.ascontiguousarray(shard_batch(idx.T, self.mesh).T)
+                idx = torch.from_numpy(idx.astype(np.int64)).to(self.device)
+                k = self.steps_per_dispatch
+                for k0 in range(0, n_full, k):
+                    # a whole super-step replays its graph once captured
+                    with span("train.replay" if k0 + k <= n_full
+                              else "train.eager"):
+                        rows.append(self._resident_step(self.state, wire,
+                                                        idx[k0:k0 + k]))
+            else:
+                for i in range(n_full):
+                    with span("train.eager"):
+                        rows.append(self._resident_batch(
+                            wire, order[i * B:(i + 1) * B]))
+            if rem and self._skip_tiny_tail(rem):
+                rem = 0
+            if rem:
+                with span("train.eager"):
+                    rows.append(self._resident_batch(wire,
+                                                     order[n_full * B:n]))
+            return _pack_metrics(rows), base_step
 
     def _train_epoch(self, data_loader, epoch):
         """One epoch. Returns (mean loss over all steps, storer dict of
@@ -550,7 +572,8 @@ class Trainer:
         (mean epoch loss, storer of the recorded steps' means)."""
         if packed is None:
             return float("nan"), {}
-        all_metrics = packed[1]()
+        with span("train.fetch"):
+            all_metrics = packed[1]()
         steps = base_step + 1 + np.arange(all_metrics.shape[0])
         recorded = (steps % RECORD_LOSS_EVERY) == 1
         loss_idx = self.metric_keys.index("loss")
