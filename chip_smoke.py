@@ -61,7 +61,12 @@ Phases (any failure raises and exits non-zero; there is no CPU carry-on):
    times at the FactorVAE half batch (128, 32, 32, 3) too; all of the
    b256 times, bounds and floors again at the b64 flagship's shape and
    at the two Cout = 1 shapes of the mnist/fashion and chairs runs
-   (`b64_mnist`, `b64_chairs`).
+   (`b64_mnist`, `b64_chairs`). Then K4 (conv1's weight gradient) at
+   conv1's b64 celeba, chairs and mnist shapes: within 1e-6 of scale of
+   float64 and of its plain version, three launches bitwise alike;
+   L2-cold and warm times, its bound (K1's bytes), its plain version's
+   time, cuDNN's float32 dW-only call (`library_ms`), and cuDNN's float32
+   and TF32 errors beside K4's.
 5. Eval path: the full 737,280-image dsprites lattice fabricated with
    tools/fabricate_dsprites.py, a seeded-init Burgess 64x64x1 latent-10
    checkpoint written with the port's save_model, then the port's CLI
@@ -78,8 +83,9 @@ Phases (any failure raises and exits non-zero; there is no CPU carry-on):
 7. Training path: a 25,637-image celeba subset (tools/fabricate_celeba.py;
    100 batches of 256 and a tail of 37), the K1/K2 hook set, then the CLI
    with btcvae_celeba's settings at b256 under `--precision default` for 2
-   epochs, under torch.profiler. Checks one K1 and one K2 execution per
-   train step among the profiler's device events (eager and replayed
+   epochs, under torch.profiler. Checks one K1, one K2 and one K4 (conv1's
+   weight gradient) execution per train step among the profiler's device
+   events (eager and replayed
    steps alike), that the wrappers launched each kernel (in the eager
    steps and the capture: a replay calls no wrapper), that the resident
    super-steps replayed as a CUDA graph, the log, the checkpoints, a
@@ -222,9 +228,11 @@ Phases (any failure raises and exits non-zero; there is no CPU carry-on):
    step in turns, each with a profiled window: device busy, kernels a
    step, and the launches float32 adds. First, the algorithm choices the
    policy makes: the wgrad of the thin convs and of two 32-channel ones
-   on bf16 values with TF32 on and off (error against float64, warm ms),
-   and whether each dgrad repeats bitwise with cuDNN's non-deterministic
-   choice. Every line carries the card's name and power limit.
+   on bf16 values with TF32 on and off, and conv1's from K4, which
+   `default` takes on the card (error against float64, warm ms), and
+   whether each dgrad repeats bitwise with cuDNN's non-deterministic
+   choice. The betaB_mnist step launches K1, K2 and K4 once each. Every
+   line carries the card's name and power limit.
 
 Its last two lines are JSON: the kernels' record (per kernel `ms`, the
 L2-cold time, `warm_ms`, `plain_ms`, `bound_ms`/`bound_us`, `bound_by`,
@@ -285,6 +293,15 @@ CONVT_SHAPES = [(256, 32, 32, 3), (128, 32, 32, 3), (256, 16, 32, 1),
 FLAGSHIP_CONVT = (64, 32, 32, 3)
 # phase 17's and the zoo evidence runs' Cout = 1 layers, by their dataset
 COUT1_CONVT = {(64, 16, 32, 1): "b64_mnist", (64, 32, 32, 1): "b64_chairs"}
+# conv1's x (N, Cin, H, H) at the b64 celeba, chairs and mnist/fashion
+# settings and at phase 7's b256 celeba steps and their ragged tail of 37,
+# whose weight gradient K4 takes under `default`, and K4's bound
+# on max |d| / max |ref| against float64 (cuDNN's float32 wgrad is 1.5e-7
+# to 3.2e-7 there, its TF32 one 1.1e-5 to 6.4e-5)
+THIN_CONV_SHAPES = {"b64_celeba": (64, 3, 64), "b64_chairs": (64, 1, 64),
+                    "b64_mnist": (64, 1, 32), "b256_celeba": (256, 3, 64),
+                    "n37_celeba": (37, 3, 64)}
+THIN_CONV_TOL = 1e-6
 N_CELEBA = 25637  # 100 batches of 256 and a ragged tail of 37
 N_DSPRITES = 737280  # the full factor lattice
 EXPORT_ATOL = 1e-5  # exported program vs ServingModel, float32 both
@@ -945,6 +962,88 @@ def _k2_times(C, w, dy32):
     return cold, warm
 
 
+def phase_thin_conv_dw(C):
+    """K4 (conv1's weight gradient, ops/convt_bwd.py `thin_conv_dw`) at
+    conv1's shapes THIN_CONV_SHAPES, bf16 x and dy: against float64 on
+    the same values and against its plain version (max |d| / max |ref| <=
+    THIN_CONV_TOL), three launches bitwise alike; L2-cold and warm times
+    beside its plain version's and cuDNN's float32 dW-only call (what
+    `default` ran before K4: TF32 off, deterministic), cuDNN's float32
+    and TF32 wgrads' errors beside K4's, and K4's bound (K1's bytes and
+    products at the same shapes). Returns {shape key: record}, or None
+    for a package without K4."""
+    from disvae_tpu_torch.ops.precision import configure
+    if not hasattr(C, "thin_conv_dw"):
+        log("K4: not in this package")
+        return None
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 3)
+    flush = _flush()
+    out = {}
+    for key, (n, cin, h) in THIN_CONV_SHAPES.items():
+        x = torch.from_numpy(rng.random((n, cin, h, h), np.float32)).to(
+            dev).bfloat16()
+        dy = torch.from_numpy(1e-2 * rng.standard_normal(
+            (n, 32, h // 2, h // 2), np.float32)).to(dev).bfloat16()
+        xf, dyf = x.float(), dy.float()
+        w = torch.zeros((32, cin, 4, 4), device=dev)
+        ref = torch.ops.aten.convolution_backward(
+            dy.double(), x.double(), w.double(), None, [2, 2], [1, 1],
+            [1, 1], False, [0, 0], 1, [False, True, False])[1]
+
+        def err(dw, ref=ref):
+            return ((dw.double() - ref).abs().max()
+                    / ref.abs().max()).item()
+
+        def k4(x=x, dy=dy):
+            return C.thin_conv_dw(x, dy)
+
+        def cudnn(xf=xf, dyf=dyf, w=w):
+            return torch.ops.aten.convolution_backward(
+                dyf, xf, w, None, [2, 2], [1, 1], [1, 1], False, [0, 0], 1,
+                [False, True, False])[1]
+        dw = k4()
+        e = {"err_float64": err(dw),
+             "err_plain": _rel(C.thin_conv_dw_plain(x, dy, torch.bfloat16),
+                               dw)}
+        repeats = all(torch.equal(dw, k4()) for _ in range(3))
+        configure("default")
+        try:
+            cold, (warm, kernels) = time_ms(k4, 20, flush), _device_ms(k4)
+            e["cudnn_tf32_err"] = err(cudnn())
+            torch.backends.cudnn.allow_tf32 = False
+            e["cudnn_float32_err"] = err(cudnn())
+            lib_cold, lib_warm = time_ms(cudnn, 20, flush), _device_ms(cudnn)[0]
+        finally:
+            configure("highest")
+        plain = time_ms(lambda: C.thin_conv_dw_plain(x, dy, torch.bfloat16),
+                        10)
+        r = _bound(2 * (x.numel() + dy.numel()) + 4 * w.numel(),
+                   ops=[(2 * dy.numel() * 16 * cin, PEAK_BF16)])
+        r.update(ms=cold, warm_ms=warm, plain_ms=plain, library_ms=lib_cold,
+                 warm_library_ms=lib_warm, bound_us=r["bound_ms"] * 1e3,
+                 repeats=repeats, kernels=[k[:60] for k, _, _ in kernels],
+                 **e)
+        out[key] = r
+        log("K4 (thin_conv_dw) at {}, x {} -> dy {}: off float64 {:.2e} "
+            "(cuDNN float32 {:.2e}, TF32 {:.2e}), off its plain version "
+            "{:.2e}, three launches bitwise {}; L2-cold {:.4f} ms / warm "
+            "{:.4f} ms = {:.3f}x cuDNN's float32 dW only ({:.4f} / {:.4f} "
+            "ms), {:.1%} of its {:.2f} us bound ({}); plain {:.4f} ms; "
+            "kernels {}".format(
+                key, tuple(x.shape), tuple(dy.shape), e["err_float64"],
+                e["cudnn_float32_err"], e["cudnn_tf32_err"], e["err_plain"],
+                repeats, cold, warm, cold / lib_cold, lib_cold, lib_warm,
+                r["bound_ms"] / cold, r["bound_us"], r["bound_by"], plain,
+                r["kernels"]))
+        if not (e["err_float64"] <= THIN_CONV_TOL
+                and e["err_plain"] <= THIN_CONV_TOL and repeats):
+            raise AssertionError("K4 at {}: {}, repeats {}".format(
+                key, e, repeats))
+    del flush
+    return out
+
+
 def phase_convt_kernels(C, probe, flat):
     """K1/K2 against their plain versions and cuDNN at the path's shapes.
     Returns the kernels' records (b256 celeba times in bf16, K2's also at
@@ -1292,23 +1391,32 @@ def _read_log(exp_dir):
 
 
 def _convt_device_launches(prof):
-    """(K1, K2) kernel executions on the device in a torch.profiler window:
-    K1's band kernel (one per convt3_dw call, its merge kernel beside it)
-    and K2's kernel, whether launched eagerly or replayed in a graph."""
+    """(K1, K2, K4) kernel executions on the device in a torch.profiler
+    window: K1's band kernel (one per convt3_dw call, its merge kernel
+    beside it), K2's kernel and K4's band kernel (one per thin_conv_dw
+    call), whether launched eagerly or replayed in a graph."""
     # the profiler's raw events: building its FunctionEvent tree for the
     # thousands of steps of a training run would take minutes
     names = [e.name() for e in prof.profiler.kineto_results.events()
              if e.device_type() == torch.autograd.DeviceType.CUDA]
     # demangled names: "void convt3_dw_band_kernel<...>(...)"
     return (sum("convt3_dw_band" in n for n in names),
-            sum("convt3_dx" in n for n in names))
+            sum("convt3_dx" in n for n in names),
+            sum("thin_conv_dw_band" in n for n in names))
+
+
+def _k4_executions_ok(C, executions, steps):
+    """Whether K4 ran once a step (conv1's weight gradient under
+    `default`); a package without K4 launches none."""
+    return executions[2] == (steps if hasattr(C, "thin_conv_dw") else 0)
 
 
 def phase_train(C, scratch):
     """btcvae_celeba's settings through the CLI at b256 under `default`,
-    with the K1/K2 hook set, under torch.profiler. Returns K1's and K2's
-    launch counts (their wrappers' counts: the eager steps and the
-    captured ones), the graph's replays, the kernels' executions on the
+    with the K1/K2 hook set, under torch.profiler. Returns K1's, K2's and
+    K4's launch counts (their wrappers' counts: the eager steps and the
+    captured ones; K4's None for a package without it), the graph's
+    replays, the kernels' executions on the
     device (the profiler's: every step, replayed or not) and the epoch
     stats."""
     from disvae_tpu_torch import cli
@@ -1329,8 +1437,11 @@ def phase_train(C, scratch):
     burgess.set_final_convt_impl(C.conv_transpose2d_pl)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    k4 = getattr(C, "thin_conv_dw", None)
     try:
         C.convt3_dw.launches = C.convt3_dx.launches = 0
+        if k4:
+            k4.launches = 0
         with torch.profiler.profile(activities=acts) as prof:
             trainer, _, seconds = _cli_run(cli, scratch, [
                 name, "-d", "celeba", "-l", "btcvae", "--btcvae-B", "6.4",
@@ -1338,7 +1449,8 @@ def phase_train(C, scratch):
                 "--checkpoint-every", "1", "--precision", "default",
                 "--no-viz-gif", "--no-progress-bar", "-s", str(SEED)])
             torch.cuda.synchronize()
-        launches = (C.convt3_dw.launches, C.convt3_dx.launches)
+        launches = (C.convt3_dw.launches, C.convt3_dx.launches,
+                    k4.launches if k4 else None)
     finally:
         burgess.set_final_convt_impl(burgess.conv_transpose2d)
         configure("highest")
@@ -1350,16 +1462,19 @@ def phase_train(C, scratch):
     device = _convt_device_launches(prof)
     log("train CLI (btcvae, celeba {:,} images, b256, default, K1/K2 hook,"
         " under torch.profiler): {:.1f} s in all, {} steps, K1 launches {},"
-        " K2 launches {} (their wrappers' counts), {} CUDA graph replays of "
-        "{} steps, K1/K2 executions on the device {} / {} (profiler)".format(
+        " K2 launches {}, K4 launches {} (their wrappers' counts), {} CUDA "
+        "graph replays of "
+        "{} steps, K1/K2/K4 executions on the device {} / {} / {} "
+        "(profiler)".format(
             N_CELEBA, seconds, steps, *launches, replays,
             trainer.steps_per_dispatch, *device))
     for e in stats:
         log("  epoch {}: mean loss {:.4f}, {:.0f} images/sec".format(
             e["epoch"] + 1, e["loss"], e["images_per_sec"]))
-    if steps != 2 * -(-N_CELEBA // 256) or device != (steps, steps) \
-            or min(launches) < 1:
-        raise AssertionError("expected one K1 and one K2 execution per "
+    if steps != 2 * -(-N_CELEBA // 256) or device[:2] != (steps, steps) \
+            or not _k4_executions_ok(C, device, steps) \
+            or min(n for n in launches if n is not None) < 1:
+        raise AssertionError("expected one K1, K2 and K4 execution per "
                              "train step: {} steps, executions {}, wrapper "
                              "launches {}".format(steps, device, launches))
     rows = _read_log(exp_dir)
@@ -2049,19 +2164,21 @@ def phase_zoo(C, scratch, smi):
         want = ((B, 32, h // 2, h // 2), (B, c, h, h))
         log("[{}] {} ({} {}, {:,} images, b{}, {}, K1/K2 hook, under "
             "torch.profiler): {:.1f} s, {} steps, K1/K2 wrapper launches {} "
-            "/ {}, {} CUDA graph replays of {}, executions on the device {} "
-            "/ {} (profiler; its stop and the count {:.1f} s); (x, dy) into "
-            "K1/K2 {}".format(
+            "/ {}, {} CUDA graph replays of {}, K1/K2/K4 executions on the "
+            "device {} / {} / {} (profiler; its stop and the count {:.1f} "
+            "s); (x, dy) into K1/K2 {}".format(
                 smi, name, specs["loss"], specs["dataset"], n, B,
                 specs["precision"], seconds, steps, *launches, replays, k,
                 *executions, t_prof[name], sorted(shapes)))
-        if steps != ZOO_EPOCHS * -(-n // B) or executions != (steps, steps) \
+        if steps != ZOO_EPOCHS * -(-n // B) \
+                or executions[:2] != (steps, steps) \
+                or not _k4_executions_ok(C, executions, steps) \
                 or min(launches) < 1 or want not in shapes \
                 or any(x[1:] != want[0][1:] or dy[1:] != want[1][1:]
                        for x, dy in shapes):
-            raise AssertionError("{}: expected one K1 and one K2 execution "
-                                 "per step at x {}, dy {}".format(
-                                     name, *want))
+            raise AssertionError("{}: expected one K1, K2 and K4 "
+                                 "execution per step, K1/K2 at x {}, dy "
+                                 "{}".format(name, *want))
         rows = _read_log(exp_dir)
         if sorted({r[0] for r in rows}) != ["0", "1"] \
                 or not all(math.isfinite(float(r[2])) for r in rows):
@@ -2177,9 +2294,10 @@ def phase_evidence(scratch, smi, package_root):
     and K1's and K2's executions (the wrappers' launches less the captured
     ones, plus one per replayed step) equal to the optimizer steps and to
     their executions among the profiled epoch's device events with the
-    kernels, and zero of each with cudnn; the specs equal but for the
-    name; finite test losses. Returns the kernels run's train_leg
-    record."""
+    kernels, and zero of each with cudnn; K4's (conv1's weight gradient,
+    in both runs) equal to the steps the same two ways; the specs equal
+    but for the name; finite test losses. Returns the kernels run's
+    train_leg record."""
     t0 = time.perf_counter()
     flags = zoo_flags("-", "btcvae_celeba_tpu", False)[1:] + ["-e", "1"]
     env = dict(os.environ, PYTHONPATH=package_root)
@@ -2213,17 +2331,18 @@ def phase_evidence(scratch, smi, package_root):
         prof = leg["profiled_epoch"] or {}
         counts = [(leg[k]["executions"], prof.get(k))
                   for k in ("convt3_dw", "convt3_dx")]
+        k4 = (leg["thin_conv_dw"]["executions"], prof.get("thin_conv_dw"))
         log("[{}] phase 18: evidence --final-convt {} (b64 btcvae_celeba "
             "settings, {:,} images, 1 epoch): {} steps, resident {}, graph "
             "{}, K1/K2 wrapper launches {} / {} ({} / {} captured), "
             "executions {} / {} (profiled epoch: {} / {} device events of "
-            "{} steps), convt3_bwd calls {}, {:.0f} images/sec; legs {}; "
-            "test loss {:.4f}".format(
+            "{} steps), K4 executions {} (profiled {}), convt3_bwd calls {}, "
+            "{:.0f} images/sec; legs {}; test loss {:.4f}".format(
                 smi, final_convt, N_CELEBA, leg["steps"], leg["resident"],
                 leg["graph"], leg["convt3_dw"]["launches"],
                 leg["convt3_dx"]["launches"], leg["convt3_dw"]["captured"],
                 leg["convt3_dx"]["captured"], *[c[0] for c in counts],
-                *[c[1] for c in counts], prof.get("steps"),
+                *[c[1] for c in counts], prof.get("steps"), *k4,
                 leg["convt3_bwd_calls"], leg["epoch_images_per_sec"][0],
                 {k: round(v, 1) for k, v in device["leg_seconds"].items()},
                 losses["loss"]))
@@ -2234,7 +2353,7 @@ def phase_evidence(scratch, smi, package_root):
                 or steps != -(-N_CELEBA // 64) or not leg["resident"] \
                 or not leg["graph"] or not leg["graph"]["replayed_steps"] \
                 or prof.get("steps") != steps \
-                or counts != [(want, want)] * 2 \
+                or counts != [(want, want)] * 2 or k4 != (steps, steps) \
                 or leg["convt3_bwd_calls"] != (
                     leg["convt3_dw"]["launches"] if want else 0) \
                 or not all(math.isfinite(v) for v in losses.values()):
@@ -3068,12 +3187,15 @@ def _precision_step(say, C):
     batch = torch.from_numpy(rng.integers(0, 256, (64, 32, 32, 1),
                                           dtype=np.uint8))
     eps = torch.from_numpy(rng.standard_normal((64, 10), np.float32))
+    k4 = getattr(C, "thin_conv_dw", None)
     configure("default")
     try:
-        before = (C.convt3_dw.launches, C.convt3_dx.launches)
+        before = (C.convt3_dw.launches, C.convt3_dx.launches,
+                  k4.launches if k4 else 0)
         card = _betaB_mnist_step(torch.device("cuda"), batch, eps, True)
         launched = (C.convt3_dw.launches - before[0],
-                    C.convt3_dx.launches - before[1])
+                    C.convt3_dx.launches - before[1],
+                    k4.launches - before[2] if k4 else 0)
         cpu = _betaB_mnist_step(torch.device("cpu"), batch, eps, True)
     finally:
         configure("highest")
@@ -3088,13 +3210,13 @@ def _precision_step(say, C):
         (card[2][k] - cpu[2][k]).abs()[
             cpu[1][k].abs() >= 0.1 * cpu[1][k].abs().max()].max().item()
         for k in cpu[2])
-    say("betaB_mnist step under default, card (K1/K2 {}) against CPU: "
+    say("betaB_mnist step under default, card (K1/K2/K4 {}) against CPU: "
         "metrics max rel {:.2e}, gradients max |d| / max |g| {:.2e} (worst "
         "tensor; by tensor {}), parameters after Adam max |d| {:.2e} where "
         "|g| >= 10% of its tensor's largest (lr {})", launched, m_err, g_err,
         ", ".join("{} {:.1e}".format(k, v) for k, v in g_errs.items()),
         p_err, lr)
-    if launched != (1, 1) or not (m_err <= STEP_METRIC_RTOL
+    if launched != (1, 1, 1 if k4 else 0) or not (m_err <= STEP_METRIC_RTOL
                                   and g_err <= STEP_GRAD_TOL
                                   and p_err <= lr / 10):
         raise AssertionError("the card's betaB_mnist step is off the CPU's: "
@@ -3242,11 +3364,12 @@ WGRAD_CASES = [("conv1 mnist", "conv", (64, 1, 32, 32), (32, 1, 4, 4)),
                ("convT2 chairs", "convT", (64, 32, 16, 16), (32, 32, 4, 4))]
 
 
-def _precision_algorithms(say):
-    """Why `default` takes the thin convs' wgrad with TF32 off and keeps
-    cuDNN deterministic: each case's wgrad on bf16-rounded operands with
-    TF32 on and off (deterministic cuDNN), its error against float64 and
-    its warm device ms; and whether the dgrad of each case repeats bit for
+def _precision_algorithms(say, C):
+    """Why `default` takes the thin convs' wgrad with TF32 off (or from
+    K4) and keeps cuDNN deterministic: each case's wgrad on bf16-rounded
+    operands with TF32 on and off (deterministic cuDNN), and from K4
+    where `default` sends it there, its error against float64 and its
+    warm device ms; and whether the dgrad of each case repeats bit for
     bit with cuDNN's own (non-deterministic) choice under TF32."""
     from disvae_tpu_torch.ops import precision as P
     rng = np.random.default_rng(SEED + 2)
@@ -3281,16 +3404,28 @@ def _precision_algorithms(say):
                 ms = _device_ms(lambda: grad([False, True, False]))[0]
                 rec["tf32" if tf32 else "float32"] = dict(err=err, ms=ms)
             torch.backends.cudnn.allow_tf32 = True
+            k4 = ""
+            if hasattr(P, "takes_thin_conv_dw") and P.takes_thin_conv_dw(
+                    kind, xs, ws, 2, 1, "cuda"):
+                xb, gb = x.bfloat16(), g.bfloat16()
+                dw = C.thin_conv_dw(xb, gb)
+                rec["k4"] = dict(
+                    err=((dw.double() - ref).abs().max()
+                         / ref.abs().max()).item(),
+                    ms=_device_ms(lambda: C.thin_conv_dw(xb, gb))[0])
+                k4 = "; K4 (the path's) {:.1e} in {:.4f} ms".format(
+                    rec["k4"]["err"], rec["k4"]["ms"])
             torch.backends.cudnn.deterministic = False
             a, b = (grad([True, False, False])[0] for _ in range(2))
             rec["dgrad_repeats_nondeterministic"] = torch.equal(a, b)
             torch.backends.cudnn.deterministic = True
             out[what] = rec
             say("{} wgrad on bf16 values: TF32 {:.1e} off float64 in {:.4f} "
-                "ms, TF32 off {:.1e} in {:.4f} ms; dgrad with cuDNN's own "
+                "ms, TF32 off {:.1e} in {:.4f} ms{}; dgrad with cuDNN's own "
                 "choice repeats bitwise: {}", what, rec["tf32"]["err"],
                 rec["tf32"]["ms"], rec["float32"]["err"],
-                rec["float32"]["ms"], rec["dgrad_repeats_nondeterministic"])
+                rec["float32"]["ms"], k4,
+                rec["dgrad_repeats_nondeterministic"])
     finally:
         P.configure("highest")
     return out
@@ -3301,7 +3436,7 @@ def phase_precision(C, smi):
     def say(fmt, *args):
         log(("[{}] " + fmt).format(smi, *args))
     t0 = time.perf_counter()
-    algorithms = _precision_algorithms(say)
+    algorithms = _precision_algorithms(say, C)
     worst = _precision_layers(say)
     step = _precision_step(say, C)
     _precision_graph(say, C)
@@ -3352,6 +3487,8 @@ def main(argv=None):
     if args.convt_only or args.precision_only:
         paths = phase_build({"convt3_bwd": C, "flat_floor": floor})
         phase_convt_kernels(C, probe, paths["flat_floor"])
+        thin = phase_thin_conv_dw(C)
+        log(json.dumps({"thin_conv_dw": thin}))
         if args.precision_only:
             log(json.dumps({"precision": phase_precision(C, smi)}))
         return 0
@@ -3402,6 +3539,7 @@ def main(argv=None):
         return 0
     record = phase_kernels(K, strict)
     convt = phase_convt_kernels(C, probe, paths["flat_floor"])
+    thin = phase_thin_conv_dw(C)
     scratch = tempfile.mkdtemp(prefix="chip_smoke_", dir=build_dir)
     try:
         exp_dir, datasets, launches, metrics, timings = phase_main_path(
@@ -3412,8 +3550,8 @@ def main(argv=None):
                 record["eval_sum_warm_ms"] / 1e3))
         phase_eval_variants(K, scratch, exp_dir, datasets, metrics, timings)
         phase_serving(exp_dir, datasets)
-        (dw_launches, dx_launches), replays, device, train_stats = \
-            phase_train(C, scratch)
+        (dw_launches, dx_launches, thin_launches), replays, device, \
+            train_stats = phase_train(C, scratch)
         phase_ab(C, datasets)
         if strict:
             log(json.dumps({"graph_times": phase_graph(
@@ -3478,7 +3616,17 @@ def main(argv=None):
                             device_launches=r["device_launches"][1],
                             graph_replays=r["graph_replays"],
                             steps=r["steps"]) for name, r in zoo.items()},
-             **convt["convt3_dx"], **cudnn)]}))
+             **convt["convt3_dx"], **cudnn),
+        dict(name="thin_conv_dw", route="cuda", source=convt_src,
+             replaces="cuDNN's float32 wgrad of the encoder's conv1 (no TPU "
+             "kernel)", launches=thin_launches, graph_replays=replays,
+             device_launches=device[2],
+             evidence=_evidence_counts(evidence, "thin_conv_dw"),
+             evidence_factor=_evidence_counts(factor, "thin_conv_dw"), zoo={
+                 name: dict(device_launches=r["device_launches"][2],
+                            graph_replays=r["graph_replays"],
+                            steps=r["steps"]) for name, r in zoo.items()},
+             shapes=thin)]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -37,15 +37,16 @@ device.json takes as `train_leg`: the precision policy and what it
 computes (`ops/precision.py` NUMERICS; sets trained before the port's
 `default` took JAX's numerics lack both), the optimizer steps, the
 resident feed and the CUDA graph's captured and replayed steps, each
-epoch's images/sec, and per kernel its wrapper's launches, those made during a
-capture, and its executions: the launches outside a capture, plus each
+epoch's images/sec, and per kernel (K1, K2, and K4, which takes conv1's
+weight gradient under `--precision default` on the card) its wrapper's
+launches, those made during a capture, and its executions: the launches outside a capture, plus each
 captured one once per replayed step. `convt3_bwd_calls` counts the
 backward's calls through `convt_bwd.convt3_bwd` on either device (on the
 CPU it takes the plain version and launches nothing). With
 `--profile-epoch E` the E-th epoch the leg trains (from 0) runs under
 torch.profiler (after a device synchronize, so that no earlier epoch's
-work is in the window), and `profiled_epoch` holds its steps, K1's and
-K2's executions among the device events, the device's busy seconds and
+work is in the window), and `profiled_epoch` holds its steps, K1's,
+K2's and K4's executions among the device events, the device's busy seconds and
 the kernels by device time.
 
 `--init-from DIR` trains from the weights of the model saved in DIR (a
@@ -217,7 +218,7 @@ def _busy_seconds(events):
 def _profiled_epoch(epoch, record):
     """Run the `epoch`-th epoch dispatch of the Trainer's resident feed in
     this process under torch.profiler, and fill `record` with its steps,
-    K1's and K2's executions among the device events (their band
+    K1's, K2's and K4's executions among the device events (their band
     kernels, whether launched or replayed in a graph), the device's busy
     seconds and the kernels by device time. No epoch: nothing."""
     if epoch is None:
@@ -252,6 +253,8 @@ def _profiled_epoch(epoch, record):
             epoch=epoch, steps=self.state.step - step0, seconds=seconds,
             convt3_dw=sum("convt3_dw_band" in e.name() for e in events),
             convt3_dx=sum("convt3_dx" in e.name() for e in events),
+            thin_conv_dw=sum("thin_conv_dw_band" in e.name()
+                             for e in events),
             device_busy_seconds=_busy_seconds(events),
             kernels=[[name, ns / 1e6, calls]
                      for name, (ns, calls) in top[:TOP_KERNELS]])
@@ -279,7 +282,7 @@ def train_leg(argv):
     """The train leg's process: set the final decoder convT's backward,
     run the training CLI's `parse_arguments` and `main` on the argv after
     `--`, then write the leg's record (the optimizer steps, the feed, the
-    graph, the K1/K2 counts, each epoch's images/sec and the profiled
+    graph, the K1/K2/K4 counts, each epoch's images/sec and the profiled
     epoch) as JSON to `--record`."""
     parser = argparse.ArgumentParser(
         prog="python -m disvae_tpu_torch.evidence " + TRAIN_LEG)
@@ -310,7 +313,8 @@ def train_leg(argv):
         epoch_images_per_sec=[e["images_per_sec"]
                               for e in trainer.epoch_stats],
         profiled_epoch=profiled or None)
-    for wrapper in (convt_bwd.convt3_dw, convt_bwd.convt3_dx):
+    for wrapper in (convt_bwd.convt3_dw, convt_bwd.convt3_dx,
+                    convt_bwd.thin_conv_dw):
         record[wrapper.__name__] = dict(
             launches=wrapper.launches, captured=wrapper.captured,
             executions=_executions(wrapper, graph))

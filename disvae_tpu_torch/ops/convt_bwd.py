@@ -1,4 +1,5 @@
-"""Backward of the decoder's final transposed conv (k4, s2, p1).
+"""Backward of the decoder's final transposed conv (k4, s2, p1), and the
+weight gradient of the encoder's first conv (k4, s2, p1).
 
 Counterpart of disvae_tpu/ops/pallas_convt_bwd.py (`convt3_bwd_pl`, its
 Pallas kernels `_dw_kernel` / `_dx_kernel`, and the custom_vjp
@@ -21,6 +22,15 @@ transposed and flipped in space (utils/torch_compat.py).
   `cdt`-rounded operands (x's dtype when None: float32 or bfloat16, dy the
   same) and sum in float32; dw and db come back in w's dtype, dx in x's,
   and db is summed from dy as given (`convt3_bwd_pl`'s contract).
+* `thin_conv_dw(x, dy)` — the hand-written CUDA kernel K4 in the same
+  file: the weight gradient (Cout, Cin, 4, 4) of a k4 s2 p1 conv with
+  few input channels (the encoder's conv1) from bf16 x and dy, which is
+  K1's sum with the operands swapped (its header). It replaces no TPU
+  kernel: ops/precision.py sends conv1's wgrad to it under ``default``
+  in place of cuDNN's float32 direct kernel when `thin_conv_dw_fits`
+  (the library's own geometry) says it takes the shape.
+  `thin_conv_dw_plain` is its plain version; `.launches` / `.captured`
+  count as K1's do.
 * `ConvTranspose3Final` / `conv_transpose2d_pl` — the autograd wrapper:
   the forward is the decoder's own final transposed conv under the
   policy (ops/precision.py); the backward runs `convt3_bwd` under the
@@ -127,6 +137,10 @@ def _declare(lib):
     lib.disvae_convt3_dx_n_blocks.restype = i
     lib.disvae_convt3_dx.argtypes = [i, i, p, p, p] + [i] * 6 + [p]
     lib.disvae_convt3_dx.restype = i
+    lib.disvae_thin_conv_dw_n_blocks.argtypes = [i] * 7
+    lib.disvae_thin_conv_dw_n_blocks.restype = i
+    lib.disvae_thin_conv_dw.argtypes = [i, p, p, p, p] + [i] * 6 + [p]
+    lib.disvae_thin_conv_dw.restype = i
 
 
 def _check(x, w, dy):
@@ -177,8 +191,9 @@ def _check_kernel(x, w, dy):
 def _blocks(query, dtype, n, cin, h, wd, cout, device_index):
     """Blocks of a launch on one card from the library's `query`
     (disvae_convt3_dw_n_blocks: K1's first pass, rows of its scratch;
-    disvae_convt3_dx_n_blocks: the bf16 K2 by its output dtype). The bf16
-    kernels ask the occupancy calculator. 0 if the shape exceeds the
+    disvae_convt3_dx_n_blocks: the bf16 K2 by its output dtype;
+    disvae_thin_conv_dw_n_blocks: K4's first pass). The bf16 kernels ask
+    the occupancy calculator. 0 if the shape exceeds the
     launch geometry. Cached: the train step asks for one shape at every
     step."""
     lib = cuda_build.library(_NAME, _declare)
@@ -188,35 +203,44 @@ def _blocks(query, dtype, n, cin, h, wd, cout, device_index):
         return getattr(lib, query)(dtype, n, cin, h, wd, cout, sm_count)
 
 
+def _launch_dw(kernel, x, dy, dw):
+    """Launch K1 (`kernel` convt3_dw) or K4 (thin_conv_dw) on checked x
+    (N, Cin, H, W) and dy (N, Cout, 2H, 2W) into dw (Cin, Cout, 4, 4):
+    the library's block query and entry point named after `kernel`, its
+    scratch, the current stream, and `kernel`'s counters."""
+    n, cin, h, wd = x.shape
+    cout = dy.shape[1]
+    name = kernel.__name__
+    n_blocks = _blocks("disvae_{}_n_blocks".format(name), _DTYPES[x.dtype],
+                       n, cin, h, wd, cout, x.device.index)
+    if n_blocks < 1:
+        raise ValueError("{}: (N, Cin, H, W, Cout) = {} exceeds the launch "
+                         "geometry (bf16: Cin <= 32, Cout <= 8 and a one-row "
+                         "band in shared memory)".format(
+                             name, (n, cin, h, wd, cout)))
+    lib = cuda_build.library(_NAME, _declare)
+    with torch.cuda.device(x.device):
+        part = torch.empty((n_blocks, dw.numel()), dtype=torch.float32,
+                           device=x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = getattr(lib, "disvae_" + name)(
+            _DTYPES[x.dtype], x.data_ptr(), dy.data_ptr(), part.data_ptr(),
+            dw.data_ptr(), n, cin, h, wd, cout, n_blocks, stream)
+    cuda_build.check(lib, err, name)
+    kernel.launches += 1
+    kernel.captured += torch.cuda.is_current_stream_capturing()
+    return dw
+
+
 def convt3_dw(x, dy):
     """K1: dW (Cin, Cout, 4, 4) float32 of the transposed conv, from CUDA
     x (N, Cin, H, W) and dy (N, Cout, 2H, 2W) of one dtype. In bf16 the
     kernel works in row bands on the tensor cores: Cin <= 32, Cout <= 8,
     and a band of one row must fit shared memory."""
-    n, cin, h, wd = x.shape
-    cout = dy.shape[1]
-    dw = torch.empty((cin, cout, 4, 4), dtype=torch.float32, device=x.device)
+    dw = torch.empty((x.shape[1], dy.shape[1], 4, 4), dtype=torch.float32,
+                     device=x.device)
     _check_kernel(x, dw, dy)
-    n_blocks = _blocks("disvae_convt3_dw_n_blocks", _DTYPES[x.dtype], n, cin,
-                       h, wd, cout, x.device.index)
-    if n_blocks < 1:
-        raise ValueError("convt3_dw: (N, Cin, H, W, Cout) = {} exceeds the "
-                         "launch geometry (bf16: Cin <= 32, Cout <= 8 and a "
-                         "one-row band in shared memory)".format(
-                             (n, cin, h, wd, cout)))
-    lib = cuda_build.library(_NAME, _declare)
-    with torch.cuda.device(x.device):
-        part = torch.empty((n_blocks, cin * 16 * cout), dtype=torch.float32,
-                           device=x.device)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.disvae_convt3_dw(_DTYPES[x.dtype], x.data_ptr(),
-                                   dy.data_ptr(), part.data_ptr(),
-                                   dw.data_ptr(), n, cin, h, wd, cout,
-                                   n_blocks, stream)
-    cuda_build.check(lib, err, "convt3_dw")
-    convt3_dw.launches += 1
-    convt3_dw.captured += torch.cuda.is_current_stream_capturing()
-    return dw
+    return _launch_dw(convt3_dw, x, dy, dw)
 
 
 def convt3_dx(dy, w, out_dtype=None):
@@ -255,8 +279,45 @@ def convt3_dx(dy, w, out_dtype=None):
     return dx
 
 
+def thin_conv_dw_plain(x, dy, cdt=torch.float32):
+    """Plain K4: dW (Cout, Cin, 4, 4) float32 of the k4 s2 p1 conv from x
+    (N, Cin, H, W) and dy (N, Cout, H/2, W/2), on `cdt`-rounded operands
+    summed in float32: K1's plain version with the conv's dy as K1's x and
+    its x as K1's dy."""
+    return convt3_dw_plain(dy, x, cdt)
+
+
+def thin_conv_dw_fits(x, w):
+    """Whether `thin_conv_dw` takes the weight gradient of the k4 s2 p1
+    conv of CUDA x (N, Cin, H, W) with weight w (Cout, Cin, 4, 4): H and
+    W even, and the library's own band geometry, asked as a launch asks
+    it (cached)."""
+    n, cin, h, wd = x.shape
+    return (h % 2 == 0 and wd % 2 == 0 and x.numel() < 2 ** 31
+            and _blocks("disvae_thin_conv_dw_n_blocks",
+                        _DTYPES[torch.bfloat16], n, w.shape[0], h // 2,
+                        wd // 2, cin, x.device.index) > 0)
+
+
+def thin_conv_dw(x, dy):
+    """K4: dW (Cout, Cin, 4, 4) float32, the weight gradient of the k4 s2
+    p1 conv, from CUDA bf16 x (N, Cin, H, W) and dy (N, Cout, H/2, W/2),
+    both contiguous: K1's row bands on the tensor cores with the conv's dy
+    as K1's x and its x as K1's dy, so Cout <= 32, Cin <= 8, and a band
+    of one row of dy must fit shared memory. Shapes are checked, and a
+    misfit reported, in K1's roles."""
+    if x.dtype != torch.bfloat16 or dy.dtype != torch.bfloat16:
+        raise TypeError("thin_conv_dw: x and dy must be bfloat16, got {}, "
+                        "{}".format(x.dtype, dy.dtype))
+    dw = torch.empty((dy.shape[1], x.shape[1], 4, 4), dtype=torch.float32,
+                     device=x.device)
+    _check_kernel(dy, dw, x)
+    return _launch_dw(thin_conv_dw, dy, x, dw)
+
+
 convt3_dw.launches = convt3_dw.captured = 0
 convt3_dx.launches = convt3_dx.captured = 0
+thin_conv_dw.launches = thin_conv_dw.captured = 0
 
 
 def convt3_bwd(x, w, dy, cdt=None):

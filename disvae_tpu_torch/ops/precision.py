@@ -22,7 +22,10 @@
   in float32, as an MXU pass does. cuDNN's algorithms are deterministic
   as under ``highest`` (otherwise its TF32 dgrad for a 1- or 3-channel
   input is not repeatable on an H100), so a CUDA graph of the step
-  replays the eager step bit for bit.
+  replays the eager step bit for bit. On the card the weight gradient of
+  the encoder's first conv comes from the hand-written kernel K4
+  (`takes_thin_conv_dw`), which multiplies the same bf16 values exactly
+  and sums in float32.
 
 JAX's other bf16 mode, ``compute_dtype="bfloat16"`` (bf16 activations,
 weights and outputs), is `models.vae.VAE(compute_dtype="bfloat16")`,
@@ -73,14 +76,32 @@ def round_bf16(t):
 
 
 # A k4 conv with at most this many input (conv) or output (transposed
-# conv) channels takes its weight gradient with TF32 off: on the H100
-# cuDNN's TF32 wgrad for conv1 / the final transposed conv (Cin or Cout 1
-# or 3) sums its N*H*W products in one long float32 chain, 1.1e-5 to
-# 6.4e-5 of scale off float64 at b64, against 1.5e-7 to 3.2e-7 for its
-# float32 kernel (chip_smoke.py phase 19). Products of bf16 values are
-# exact in either, so the function is the same. The 32-channel layers
-# keep TF32, 0.026 ms against 0.50 ms for the float32 kernel.
+# conv) channels takes its weight gradient with TF32 off when cuDNN
+# computes it: on the H100 cuDNN's TF32 wgrad for conv1 / the final
+# transposed conv (Cin or Cout 1 or 3) sums its N*H*W products in one
+# long float32 chain, 1.1e-5 to 6.4e-5 of scale off float64 at b64,
+# against 1.5e-7 to 3.2e-7 for its float32 kernel (chip_smoke.py phase
+# 19). Products of bf16 values are exact in either, so the function is
+# the same. The 32-channel layers keep TF32, 0.026 ms against 0.50 ms for
+# the float32 kernel. On the card conv1's wgrad goes to K4 instead
+# (`takes_thin_conv_dw`); the thin wgrads left to cuDNN are the final
+# transposed conv's without the K1/K2 hook, a thin conv on the CPU, and
+# one outside K4's geometry.
 THIN_CHANNELS = 4
+
+
+def takes_thin_conv_dw(kind, x_shape, w_shape, stride, padding, device_type,
+                       weight_grad=True):
+    """Whether a layer under the ``default`` numerics asks K4
+    (ops/convt_bwd.py `thin_conv_dw`) for its weight gradient rather than
+    cuDNN: a k4 s2 p1 conv on the card with at most THIN_CHANNELS input
+    channels whose weight gradient is wanted. A pure function of what the
+    layer gets; the backward then takes K4 where the kernel's own
+    geometry holds the shape (`convt_bwd.thin_conv_dw_fits`)."""
+    return (kind == "conv" and weight_grad and device_type == "cuda"
+            and stride == 2 and padding == 1
+            and tuple(w_shape[2:]) == (4, 4)
+            and x_shape[1] == w_shape[1] <= THIN_CHANNELS)
 
 
 def _conv_backward(dy, x, w, kind, stride, padding, mask):
@@ -105,8 +126,13 @@ class _Bf16Layer(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, kind, stride, padding):
-        x, w = round_bf16(x), round_bf16(w)
-        ctx.save_for_backward(x, w)
+        # K4 takes bf16 x: keep the rounding's bf16 copy for it
+        ctx.k4 = takes_thin_conv_dw(kind, x.shape, w.shape, stride,
+                                    padding, x.device.type,
+                                    ctx.needs_input_grad[1])
+        xb = x.to(torch.bfloat16)
+        x, w = xb.to(x.dtype), round_bf16(w)
+        ctx.save_for_backward(xb.contiguous() if ctx.k4 else x, w)
         ctx.layer = (kind, stride, padding)
         if kind == "linear":
             return F.linear(x, w)
@@ -117,8 +143,20 @@ class _Bf16Layer(torch.autograd.Function):
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
         kind, stride, padding = ctx.layer
-        dy = round_bf16(dy)
         mask = list(ctx.needs_input_grad[:2])
+        if ctx.k4:  # x is the forward's bf16 copy
+            from disvae_tpu_torch.ops import convt_bwd  # imports this module
+            if convt_bwd.thin_conv_dw_fits(x, w):
+                # dy rounds to bf16 exactly as below
+                dyb = dy.to(torch.bfloat16).contiguous()
+                dw = convt_bwd.thin_conv_dw(x, dyb)
+                dx = None
+                if mask[0]:
+                    dx, _ = _conv_backward(dyb.float(), x.float(), w, kind,
+                                           stride, padding, [True, False])
+                return dx, dw, None, None, None
+            x = x.float()
+        dy = round_bf16(dy)
         if kind != "linear":
             dx, dw = _conv_backward(dy, x, w, kind, stride, padding, mask)
             return dx, dw, None, None, None

@@ -167,6 +167,82 @@ def test_convt3_dw_bands_reject_wide_channels(cuda, cin, cout):
     assert C.convt3_dw.launches == before
 
 
+# (n, cin, h): conv1's x (N, Cin, H, H) at the b64 celeba, chairs and
+# mnist/fashion settings, and a ragged batch
+THIN_CONV_SHAPES = [(64, 3, 64), (64, 1, 64), (64, 1, 32), (39, 3, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n, cin, h", THIN_CONV_SHAPES)
+def test_thin_conv_dw_matches_plain_and_float64(cuda, n, cin, h):
+    """K4, conv1's weight gradient from bf16 x (N, Cin, H, H) and dy (N,
+    32, H/2, H/2), against its plain version and against float64 on the
+    same bf16 values: max |d| / max |ref| <= 1e-6 (cuDNN's float32 kernel
+    is 1.5e-7 to 3.2e-7 off float64, its TF32 one 1.1e-5); one launch
+    counted per call; three launches give the same bits."""
+    import torch.nn.functional as F
+    from disvae_tpu_torch.ops import convt_bwd as C
+    rng = np.random.RandomState(n * 10 + cin)
+    x = torch.from_numpy(np.maximum(rng.randn(n, cin, h, h), 0).astype(
+        np.float32)).to(cuda).bfloat16()
+    dy = torch.from_numpy(1e-2 * rng.randn(n, 32, h // 2, h // 2).astype(
+        np.float32)).to(cuda).bfloat16()
+    before = C.thin_conv_dw.launches
+    dw = C.thin_conv_dw(x, dy)
+    torch.cuda.synchronize()
+    assert C.thin_conv_dw.launches == before + 1
+    assert dw.shape == (32, cin, 4, 4) and dw.dtype == torch.float32
+    xd = x.double().requires_grad_()
+    wd = torch.zeros((32, cin, 4, 4), dtype=torch.float64, device=cuda,
+                     requires_grad=True)
+    F.conv2d(xd, wd, None, stride=2, padding=1).backward(dy.double())
+    assert _rel(wd.grad, dw) <= 1e-6
+    assert _rel(C.thin_conv_dw_plain(x, dy, torch.bfloat16), dw) <= 1e-6
+    for _ in range(3):
+        assert torch.equal(dw, C.thin_conv_dw(x, dy))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n, cin, h, cout", [(2, 9, 16, 32),
+                                             (2, 3, 16, 33), (2, 3, 18, 32)])
+def test_thin_conv_dw_rejects_shapes_outside_its_geometry(cuda, n, cin, h,
+                                                          cout):
+    """K4 holds Cin <= 8 and Cout <= 32: wider raises before any launch,
+    as does an x whose side is not twice dy's."""
+    from disvae_tpu_torch.ops import convt_bwd as C
+    x = torch.zeros((n, cin, h, h), device=cuda, dtype=torch.bfloat16)
+    dy = torch.zeros((n, cout, 8, 8), device=cuda, dtype=torch.bfloat16)
+    before = C.thin_conv_dw.launches
+    with pytest.raises(ValueError):
+        C.thin_conv_dw(x, dy)
+    assert C.thin_conv_dw.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n, cin, h, cout", [
+    (64, 3, 64, 32), (256, 3, 64, 32), (37, 3, 64, 32), (64, 1, 32, 32),
+    (2, 9, 16, 32), (2, 3, 16, 33), (2, 3, 17, 32), (2, 3, 1024, 32),
+    (2, 8, 512, 32)])
+def test_thin_conv_dw_fits_is_the_kernels_geometry(cuda, n, cin, h, cout):
+    """The route's question (`thin_conv_dw_fits`, asked by
+    ops/precision.py before it sends a conv to K4) says yes exactly where
+    K4 launches: conv1's shapes at b64, b256 and a ragged tail fit, and
+    an odd side, more channels or a wider image agree with the kernel."""
+    from disvae_tpu_torch.ops import convt_bwd as C
+    x = torch.zeros((n, cin, h, h), device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros((cout, cin, 4, 4), device=cuda)
+    ho = (h - 2) // 2 + 1
+    dy = torch.zeros((n, cout, ho, ho), device=cuda, dtype=torch.bfloat16)
+    try:
+        C.thin_conv_dw(x, dy)
+        launched = True
+    except ValueError:
+        launched = False
+    assert C.thin_conv_dw_fits(x, w) == launched
+    if h in (32, 64):  # conv1's
+        assert launched
+
+
 def _poison_shared_memory(device):
     """Every SM's shared memory set to NaN bits (csrc/convt3_bwd.cu
     `disvae_poison_smem`), on the current stream, before a launch."""
@@ -251,14 +327,16 @@ def test_btcvae_train_step_default_policy_with_hook(cuda):
     configure("default")
     burgess.set_final_convt_impl(C.conv_transpose2d_pl)
     try:
-        before = (C.convt3_dw.launches, C.convt3_dx.launches)
+        before = (C.convt3_dw.launches, C.convt3_dx.launches,
+                  C.thin_conv_dw.launches)
         metrics = make_train_step(cfg)(state, batch)
         torch.cuda.synchronize()
     finally:
         burgess.set_final_convt_impl(burgess.conv_transpose2d)
         configure("highest")
-    assert (C.convt3_dw.launches, C.convt3_dx.launches) == (before[0] + 1,
-                                                            before[1] + 1)
+    # K1, K2 and K4 (conv1's weight gradient) once each
+    assert (C.convt3_dw.launches, C.convt3_dx.launches,
+            C.thin_conv_dw.launches) == tuple(b + 1 for b in before)
     assert torch.isfinite(metrics["loss"]).item()
     for name, p in model.named_parameters():
         assert p.grad is not None and torch.isfinite(p.grad).all().item(), \
@@ -405,15 +483,17 @@ def test_resume_on_card_bitexact(cuda, tmp_path, precision):
     if precision == "default":
         burgess.set_final_convt_impl(C.conv_transpose2d_pl)
     try:
-        before = C.convt3_dw.launches
+        before = (C.convt3_dw.launches, C.thin_conv_dw.launches)
         straight, resumed = _resume_runs(tmp_path, cuda)
-        hooked = C.convt3_dw.launches - before
+        hooked = (C.convt3_dw.launches - before[0],
+                  C.thin_conv_dw.launches - before[1])
     finally:
         burgess.set_final_convt_impl(burgess.conv_transpose2d)
         configure("highest")
-    # the wrapper launches in eager steps and in captures, not in replays:
-    # 16 steps, 10 of them replayed, 3 captures of 2
-    assert hooked == (12 if precision == "default" else 0)
+    # the wrappers (K1, and K4 for conv1) launch in eager steps and in
+    # captures, not in replays: 16 steps, 10 of them replayed, 3 captures
+    # of 2
+    assert hooked == ((12, 12) if precision == "default" else (0, 0))
     assert (straight._resident_step.replays,
             resumed._resident_step.replays) == (3, 1)
     assert _resume_diff(straight.state, resumed.state) == 0.0
@@ -460,15 +540,18 @@ def test_graphed_super_step_with_hook_under_default(cuda):
     configure("default")
     burgess.set_final_convt_impl(C.conv_transpose2d_pl)
     try:
-        before = (C.convt3_dw.launches, C.convt3_dx.launches)
+        before = (C.convt3_dw.launches, C.convt3_dx.launches,
+                  C.thin_conv_dw.launches)
         m_eager, m_graph, s_eager, s_graph, step = _graph_against_eager(
             cuda, "btcvae")
         launches = (C.convt3_dw.launches - before[0],
-                    C.convt3_dx.launches - before[1])
+                    C.convt3_dx.launches - before[1],
+                    C.thin_conv_dw.launches - before[2])
     finally:
         burgess.set_final_convt_impl(burgess.conv_transpose2d)
         configure("highest")
-    assert step.replays == 3 and launches == (24, 24)
+    # K4 takes conv1's weight gradient in every step as well
+    assert step.replays == 3 and launches == (24, 24, 24)
     assert torch.equal(m_eager, m_graph)
     assert differences(s_eager, s_graph) == []
 
