@@ -51,7 +51,8 @@ import torch.distributed as dist
 
 from disvae_tpu_torch.data.datasets import (DATASETS, get_dataloaders,
                                             get_img_size)
-from disvae_tpu_torch.models.vae import MODELS, init_specific_model
+from disvae_tpu_torch.models.vae import (MODELS, derived_latent_dim,
+                                         init_specific_model)
 from disvae_tpu_torch.ops.losses import LOSSES, RECON_DIST, get_loss_f
 from disvae_tpu_torch.ops.precision import PRECISIONS, configure
 from disvae_tpu_torch.parallel import distributed
@@ -166,9 +167,12 @@ def parse_arguments(args_to_parse):
     model.add_argument('-m', '--model-type',
                        default=default_config['model'], choices=MODELS,
                        help='Architecture family for the encoder/decoder pair.')
-    model.add_argument('-z', '--latent-dim', type=int,
-                       default=default_config['latent_dim'],
-                       help='Size of the latent code z.')
+    # None until the experiment's layers are read: AutoencoderKL derives it
+    model.add_argument('-z', '--latent-dim', type=int, default=None,
+                       help='Size of the latent code z (default {}; '
+                            'AutoencoderKL: 4 * H/8 * W/8 of the dataset\'s '
+                            'images, and no other).'.format(
+                                default_config['latent_dim']))
     model.add_argument('-l', '--loss',
                        default=default_config['loss'], choices=LOSSES,
                        help="Objective used to train the VAE.")
@@ -258,6 +262,14 @@ def parse_arguments(args_to_parse):
         except KeyError as e:
             if args.experiment in ADDITIONAL_EXP:
                 raise e
+    derived = derived_latent_dim(args.model_type,
+                                 get_img_size(args.dataset))
+    if args.latent_dim is None:
+        args.latent_dim = (default_config['latent_dim'] if derived is None
+                           else derived)
+    elif derived is not None and args.latent_dim != derived:
+        parser.error("{} on {} takes latent dimension {}, not {}".format(
+            args.model_type, args.dataset, derived, args.latent_dim))
     return args
 
 

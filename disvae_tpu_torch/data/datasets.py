@@ -4,10 +4,11 @@ Copied from disvae_tpu/data/datasets.py: importing it from the JAX package
 would load JAX through disvae_tpu/__init__.py. Same registry, `DataLoader`,
 `BaseDataset.get_batch/get_batch_raw/get_batch_bits`, `ArrayDataset` and the
 five datasets, over the same uint8 NHWC caches that the `tools/fabricate_*.py`
-scripts write. Batches of a C-contiguous uint8 store (an array or a disk
-memmap) are gathered by the port's copy of the JAX package's native host
-gather (`disvae_tpu_torch/native`, built with g++ at first use); other
-stores by numpy, with the same bits. One difference:
+scripts write, plus CelebA-HQ at 256x256 (AutoencoderKL's). Batches of a
+C-contiguous uint8 store (an array or a disk memmap) are gathered by the
+port's copy of the JAX package's native host gather
+(`disvae_tpu_torch/native`, built with g++ at first use); other stores by
+numpy, with the same bits. One difference:
 
 - The port never downloads. A missing source file raises with the path to
   place it at (or the `tools/fabricate_*.py` script that writes the cache).
@@ -487,6 +488,43 @@ class CelebA(BaseDataset):
                 out[i] = np.asarray(
                     Image.open(p).convert("RGB").resize((64, 64),
                                                         Image.LANCZOS))
+            return out
+
+        imgs = _memmap_cache(cache, build, logger)
+        super().__init__(imgs)
+
+
+@_register("celebahq")
+class CelebAHQ(BaseDataset):
+    """CelebA-HQ: the 30,000 faces of Karras et al. (2018) at 256x256, the
+    set LDM's and VQGAN's autoencoders train on, packed into one memmapped
+    uint8 stack from the image files under `celeba_hq_256/` (other sizes
+    are resized)."""
+
+    img_size = (3, 256, 256)
+    background_color = COLOUR_WHITE
+    urls = {"train": "https://github.com/tkarras/progressive_growing_of_gans"
+                     "#preparing-datasets-for-training"}
+    files = {"train": "celeba_hq_256"}
+
+    def __init__(self, root=None, logger=logging.getLogger(__name__)):
+        root = root or os.path.join(DATA_ROOT, type(self).name)
+        cache = os.path.join(root, "celebahq_256.npy")
+
+        def build():
+            img_dir = _require_file(os.path.join(root, self.files["train"]),
+                                    self.urls["train"])
+            from PIL import Image
+            paths = sorted(p for p in glob.glob(os.path.join(img_dir, "*"))
+                           if p.lower().endswith((".jpg", ".jpeg", ".png")))
+            if not paths:
+                raise RuntimeError("No images under {}".format(img_dir))
+            out = np.empty((len(paths), 256, 256, 3), np.uint8)
+            for i, p in enumerate(paths):
+                im = Image.open(p).convert("RGB")
+                if im.size != (256, 256):
+                    im = im.resize((256, 256), Image.LANCZOS)
+                out[i] = np.asarray(im)
             return out
 
         imgs = _memmap_cache(cache, build, logger)

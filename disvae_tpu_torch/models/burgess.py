@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from disvae_tpu_torch.models.initialization import weights_init
 from disvae_tpu_torch.ops import precision
 
 HID_CHANNELS = 32
@@ -124,3 +125,22 @@ class Decoder(nn.Module):
         h = _convT_final(h, self.convT3.weight, self.convT3.bias)
         h = torch.sigmoid(h.float())
         return h.permute(0, 2, 3, 1)  # NCHW -> NHWC
+
+
+def parts(img_size, latent_dim):
+    """The VAE container's submodules (models/vae.py); they check the
+    image size."""
+    return {"encoder": Encoder(img_size, latent_dim),
+            "decoder": Decoder(img_size, latent_dim)}
+
+
+def encode(vae, x):
+    return vae.encoder(x)
+
+
+def decode(vae, z):
+    return vae.decoder(z)
+
+
+# the reference repository's initialisation (models/initialization.py)
+init_weights = weights_init

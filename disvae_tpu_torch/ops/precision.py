@@ -25,7 +25,10 @@
   replays the eager step bit for bit. On the card the weight gradient of
   the encoder's first conv comes from the hand-written kernel K4
   (`takes_thin_conv_dw`), which multiplies the same bf16 values exactly
-  and sums in float32.
+  and sums in float32. A product of two activations (`matmul`: an
+  attention's scores and its weighted sum) rounds both operands to bf16
+  values, sums in float32 and rounds its cotangent in the backward, as
+  JAX's default dot of two float32 arrays does.
 
 JAX's other bf16 mode, ``compute_dtype="bfloat16"`` (bf16 activations,
 weights and outputs), is `models.vae.VAE(compute_dtype="bfloat16")`,
@@ -38,6 +41,8 @@ The CLI exposes the policy as ``--precision``.
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from disvae_tpu_torch.utils import trace
 
 PRECISIONS = ["highest", "high", "default"]
 # what each policy computes in a conv, transposed conv or linear of the
@@ -75,18 +80,20 @@ def round_bf16(t):
     return t.to(torch.bfloat16).to(t.dtype)
 
 
-# A k4 conv with at most this many input (conv) or output (transposed
-# conv) channels takes its weight gradient with TF32 off when cuDNN
-# computes it: on the H100 cuDNN's TF32 wgrad for conv1 / the final
-# transposed conv (Cin or Cout 1 or 3) sums its N*H*W products in one
-# long float32 chain, 1.1e-5 to 6.4e-5 of scale off float64 at b64,
-# against 1.5e-7 to 3.2e-7 for its float32 kernel (chip_smoke.py phase
-# 19). Products of bf16 values are exact in either, so the function is
-# the same. The 32-channel layers keep TF32, 0.026 ms against 0.50 ms for
-# the float32 kernel. On the card conv1's wgrad goes to K4 instead
-# (`takes_thin_conv_dw`); the thin wgrads left to cuDNN are the final
-# transposed conv's without the K1/K2 hook, a thin conv on the CPU, and
-# one outside K4's geometry.
+# A conv or transposed conv with at most this many input or output
+# channels takes its weight gradient with TF32 off when cuDNN computes
+# it: on the H100 cuDNN's TF32 wgrad for conv1 / the final transposed
+# conv (Cin or Cout 1 or 3) sums its N*H*W products in one long float32
+# chain, 1.1e-5 to 6.4e-5 of scale off float64 at b64, against 1.5e-7 to
+# 3.2e-7 for its float32 kernel (chip_smoke.py phase 19). Products of
+# bf16 values are exact in either, so the function is the same. The
+# 32-channel layers keep TF32, 0.026 ms against 0.50 ms for the float32
+# kernel. On the card conv1's wgrad goes to K4 instead
+# (`takes_thin_conv_dw`: k4 s2 p1 only); the thin wgrads left to cuDNN's
+# float32 kernels are the final transposed conv's without the K1/K2
+# hook, a thin conv on the CPU, one outside K4's geometry, and every thin
+# k3 s1 and 1x1 conv (AutoencoderKL's encoder conv_in, post_quant_conv,
+# decoder conv_in and conv_out).
 THIN_CHANNELS = 4
 
 
@@ -104,8 +111,12 @@ def takes_thin_conv_dw(kind, x_shape, w_shape, stride, padding, device_type,
             and x_shape[1] == w_shape[1] <= THIN_CHANNELS)
 
 
+def _is_thin(w):
+    return min(w.shape[0], w.shape[1]) <= THIN_CHANNELS
+
+
 def _conv_backward(dy, x, w, kind, stride, padding, mask):
-    thin = min(w.shape[0], w.shape[1]) <= THIN_CHANNELS
+    thin = _is_thin(w)
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = tf32 and not (thin and mask[1])
     try:
@@ -147,6 +158,7 @@ class _Bf16Layer(torch.autograd.Function):
         if ctx.k4:  # x is the forward's bf16 copy
             from disvae_tpu_torch.ops import convt_bwd  # imports this module
             if convt_bwd.thin_conv_dw_fits(x, w):
+                trace.count("wgrad.k4")
                 # dy rounds to bf16 exactly as below
                 dyb = dy.to(torch.bfloat16).contiguous()
                 dw = convt_bwd.thin_conv_dw(x, dyb)
@@ -156,6 +168,9 @@ class _Bf16Layer(torch.autograd.Function):
                                            stride, padding, [True, False])
                 return dx, dw, None, None, None
             x = x.float()
+        if mask[1]:  # the route counters: K4's above, TF32 or float32
+            trace.count("wgrad.f32" if kind != "linear" and _is_thin(w)
+                        else "wgrad.tf32")
         dy = round_bf16(dy)
         if kind != "linear":
             dx, dw = _conv_backward(dy, x, w, kind, stride, padding, mask)
@@ -201,6 +216,35 @@ def linear(x, w, b):
     if not _rounds(x):
         return F.linear(x, w, b)
     return _layer("linear", x, w, b)
+
+
+class _Bf16Matmul(torch.autograd.Function):
+    """a @ b on bf16-rounded operands with float32 sums and output; the
+    backward rounds the cotangent to bf16 values as the operand of both
+    gradients, which pass the operands' rounding straight through."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        a, b = round_bf16(a), round_bf16(b)
+        ctx.save_for_backward(a, b)
+        return a @ b
+
+    @staticmethod
+    def backward(ctx, dy):
+        a, b = ctx.saved_tensors
+        dy = round_bf16(dy)
+        da = dy @ b.transpose(-1, -2) if ctx.needs_input_grad[0] else None
+        db = a.transpose(-1, -2) @ dy if ctx.needs_input_grad[1] else None
+        return da, db
+
+
+def matmul(a, b):
+    """torch.matmul of two activations under the policy (batched, as
+    torch's): under ``default`` both operands round to bf16 values and the
+    products sum in float32 (TF32 allowed, exact on bf16 values)."""
+    if not _rounds(a):
+        return torch.matmul(a, b)
+    return _Bf16Matmul.apply(a, b)
 
 
 class Conv2d(nn.Conv2d):

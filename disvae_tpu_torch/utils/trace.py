@@ -13,6 +13,11 @@ that straddles the profiler's start or stop is either recorded whole or
 not at all. Spans nest by containment and are opened on the main thread
 only (the tally is not locked). A span is host-only: it issues nothing to
 the device and may sit around a CUDA graph capture or replay.
+
+`count("wgrad.f32")` adds one to a counter of the module's tally of
+counts, `counts()`, whether or not a profiler records: a counter counts
+what the host decides at a call (which route a layer takes), once per
+call, so a CUDA graph's replays, which call nothing, add nothing.
 """
 
 import time
@@ -24,6 +29,8 @@ PREFIX = "disvae::"
 
 # {name: [calls, seconds]} of the spans recorded since start or reset()
 _TALLY = {}
+# {name: calls} of the counters since start or reset()
+_COUNTS = {}
 
 
 class span:
@@ -56,5 +63,16 @@ def tally():
     return {k: (v[0], v[1]) for k, v in _TALLY.items()}
 
 
+def count(name, n=1):
+    """Add `n` to counter `name`."""
+    _COUNTS[name] = _COUNTS.get(name, 0) + n
+
+
+def counts():
+    """{name: calls} of the counters so far."""
+    return dict(_COUNTS)
+
+
 def reset():
     _TALLY.clear()
+    _COUNTS.clear()

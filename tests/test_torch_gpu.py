@@ -21,6 +21,7 @@ from disvae_tpu_torch.ops import log_qz as port
 from graph_cases import LOSSES as GRAPH_LOSSES
 from graph_cases import (binary_wire, differences, graph_against_eager,
                          loss_config)
+from graph_cases import run as graph_run
 from log_qz_cases import CARD_EDGE_CASES, log_qz_inputs
 from precision_cases import layer_against_float64, relative_errors
 
@@ -657,6 +658,54 @@ def test_default_layer_on_card_matches_float64(cuda, name, kind, xs, ws):
         assert got.dtype == torch.float32, k
     for k, err in relative_errors(pairs).items():
         assert err <= 1e-5, (name, k, err)
+
+
+@pytest.mark.gpu
+def test_graphed_autoencoder_kl_step_is_the_eager_one(cuda):
+    """Stable Diffusion's kl-f8 autoencoder at its published widths under
+    `default`, b2 on 64 x 64 x 3 uint8 rows (a 4 x 8 x 8 latent): three
+    super-steps of two steps, eagerly and graphed (warm, capture, replay)
+    from one seed, give the same metrics and state bit for bit, with the
+    float32 weight-gradient route counted once a thin layer per step
+    (four thin convs) in the eager steps and in the capture."""
+    from disvae_tpu_torch.models.vae import init_specific_model
+    from disvae_tpu_torch.ops import precision as P
+    from disvae_tpu_torch.ops.losses import get_loss_f, metric_key_order
+    from disvae_tpu_torch.train.state import create_train_state
+    from disvae_tpu_torch.train.steps import (make_optimizer,
+                                              make_resident_multi_train_step)
+    from disvae_tpu_torch.utils import trace
+    wire = torch.randint(0, 256, (12, 64, 64, 3), dtype=torch.uint8,
+                         generator=torch.Generator().manual_seed(4)).to(cuda)
+    idx = torch.arange(12, device=cuda).view(6, 2)
+    cfg = get_loss_f("betaH", rec_dist="laplace", reg_anneal=0,
+                     betaH_B=1.5e-6)
+    P.configure("default")
+    out = []
+    try:
+        for graph in (False, True):
+            model = init_specific_model(
+                "AutoencoderKL", (3, 64, 64), 256,
+                generator=torch.Generator().manual_seed(0), device=cuda)
+            state = create_train_state(
+                model, make_optimizer(model.parameters(), 8.64e-4),
+                torch.Generator(device=cuda).manual_seed(2), loss_cfg=cfg)
+            step = make_resident_multi_train_step(
+                cfg, metric_key_order("betaH", 256), state=state,
+                graph_steps=2 if graph else None)
+            trace.reset()
+            metrics = graph_run(step, state, wire, idx, 2)
+            out.append((metrics, state, step, trace.counts()))
+        torch.cuda.synchronize()
+    finally:
+        P.configure("highest")
+        trace.reset()
+    (m_eager, s_eager, _, c_eager), (m_graph, s_graph, step, c_graph) = out
+    # the capture's call replays once, the third call again
+    assert step.captured and step.replays == 2
+    assert c_eager["wgrad.f32"] == 6 * 4 and c_graph["wgrad.f32"] == 4 * 4
+    assert torch.equal(m_eager, m_graph)
+    assert differences(s_eager, s_graph) == []
 
 
 @pytest.mark.gpu
