@@ -8,9 +8,11 @@ GPU.
     python3 chip_smoke.py --graph-only
     python3 chip_smoke.py --zoo-only
     python3 chip_smoke.py --precision-only
+    python3 chip_smoke.py --k5-only [--package-root DIR]
 
 `--convt-only` runs phases 1, 2 and 4 only, `--precision-only` phases 1,
-2 (K1/K2's builds), 4 and 19, `--logqz-only` phases 1-3 for
+2 (K1/K2's builds), 4 and 19, `--k5-only` phases 1, 2 (K5's build) and
+20, `--logqz-only` phases 1-3 for
 K3 only, `--graph-only` phase 16 on seeded random images (after building
 K1/K2), `--zoo-only` phases 1, 2 and 17; `--package-root` imports disvae_tpu_torch from another checkout
 (e.g. a `git archive` of the parent commit unpacked under build/), to time
@@ -233,6 +235,19 @@ Phases (any failure raises and exits non-zero; there is no CPU carry-on):
    whether each dgrad repeats bitwise with cuDNN's non-deterministic
    choice. The betaB_mnist step launches K1, K2 and K4 once each. Every
    line carries the card's name and power limit.
+20. K5 (GroupNorm -> SiLU -> bf16 rounding, ops/group_norm_silu.py; after
+   phase 4) at the klf8_train cell's two largest sites, b12 x (12, 128,
+   256, 256) and (12, 256, 128, 128), 32 groups: against its plain
+   version (mean and rstd within 1e-5, y the plain version's bf16 values
+   or one bf16 step (plus 1e-5 where the pre-SiLU value cancels to near
+   0) from them on under 1e-3 of the elements, dx,
+   dweight and dbias within 1e-4 of scale), two calls bitwise alike;
+   forward, backward and both timed L2-cold and warm beside the
+   compulsory-byte bound (five float32 passes over x: x read and y
+   written forward, dy and x read and dx written backward; two and three
+   of them for the halves), the plain version's time, and today's path,
+   PyTorch's group norm and SiLU with the conv's rounding (`.to(bf16)
+   .to(float32)`), forward and backward (`library_ms`).
 
 Its last two lines are JSON: the kernels' record (per kernel `ms`, the
 L2-cold time, `warm_ms`, `plain_ms`, `bound_ms`/`bound_us`, `bound_by`,
@@ -250,7 +265,8 @@ for K2 `flat_us`, its floor, `b128_ms`/`b128_warm_ms`, and `f32_out`
 (in the record and at each of its shapes), the times, bound and library
 call of its float32-output path; for K3
 `shapes`, the per-shape times, `eval_sum_ms`/`eval_sum_warm_ms` and
-`entropy_seconds`), then
+`entropy_seconds`; for K5 `group_norm_silu`, `shapes`: phase 20's
+records), then
 {"ok": true, "device": {...}}. Scratch data lives under build/ and is
 removed at the end.
 """
@@ -279,6 +295,12 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 1234
 ATOL = 1e-4  # log-density bound of tests/test_metrics.py (kernel vs scan)
+# K5's sites in phase 20, (n, c, h) of x (N, C, H, H) at the klf8_train
+# cell's b12: down_blocks[0] / up_blocks[3]'s 128 channels at 256^2 and
+# up_blocks[2]'s 256 at 128^2; kl-f8's 32 groups
+K5_SITES = {"b12_256x256x128": (12, 128, 256),
+            "b12_128x128x256": (12, 256, 128)}
+K5_GROUPS = 32
 # K1/K2 bounds on max |d| / max |ref|: float32 (tests/test_models.py:280),
 # bf16 operands against float32 sums of the same operands, and against
 # cuDNN's float32 backward (tests/test_models.py:337)
@@ -1040,6 +1062,121 @@ def phase_thin_conv_dw(C):
                 and e["err_plain"] <= THIN_CONV_TOL and repeats):
             raise AssertionError("K4 at {}: {}, repeats {}".format(
                 key, e, repeats))
+    del flush
+    return out
+
+
+def _k5_module():
+    """ops/group_norm_silu.py of the imported package, or None for a
+    package without K5."""
+    try:
+        from disvae_tpu_torch.ops import group_norm_silu
+    except ImportError:
+        return None
+    return group_norm_silu
+
+
+def phase_group_norm_silu(G):
+    """Phase 20 (module docstring). Returns {site: record}, or None for a
+    package without K5."""
+    import torch.nn.functional as F
+    if G is None:
+        log("K5: not in this package")
+        return None
+    dev = torch.device("cuda")
+    flush = _flush()
+    out = {}
+    for key, (n, c, h) in K5_SITES.items():
+        gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+        x = 3 * torch.randn((n, c, h, h), device=dev, generator=gen) + 1
+        w = 1 + 0.5 * torch.randn(c, device=dev, generator=gen)
+        b = 0.5 * torch.randn(c, device=dev, generator=gen)
+        dy = torch.randn((n, c, h, h), device=dev, generator=gen)
+        y, mean, rstd = G.group_norm_silu_fwd(x, w, b, K5_GROUPS)
+        grads = G.group_norm_silu_bwd(dy, x, w, b, mean, rstd)
+        ry, rmean, rrstd = G.group_norm_silu_fwd_plain(x, w, b, K5_GROUPS)
+        ref = G.group_norm_silu_bwd_plain(dy, x, w, b, rmean, rrstd)
+        d = (y - ry).abs()
+        e = {"y_flips": (d > 0).float().mean().item(),
+             "y_largest_diff": d.max().item(),
+             "y_beyond_one_step": int((d > 2 ** -7 * ry.abs() + 1e-5).sum()),
+             "stats_err": max(_rel(rmean, mean), _rel(rrstd, rstd)),
+             "dx_err": _rel(ref[0], grads[0]),
+             "dweight_err": _rel(ref[1], grads[1]),
+             "dbias_err": _rel(ref[2], grads[2])}
+        again = G.group_norm_silu_bwd(dy, x, w, b, mean, rstd)
+        repeats = (torch.equal(y, G.group_norm_silu_fwd(x, w, b,
+                                                        K5_GROUPS)[0])
+                   and all(torch.equal(p, q) for p, q in zip(grads, again)))
+        del ry, ref, again, d
+
+        def fwd():
+            G.group_norm_silu_fwd(x, w, b, K5_GROUPS)
+
+        def bwd():
+            G.group_norm_silu_bwd(dy, x, w, b, mean, rstd)
+
+        def both():
+            fwd()
+            bwd()
+
+        def plain():
+            _, pm, pr = G.group_norm_silu_fwd_plain(x, w, b, K5_GROUPS)
+            G.group_norm_silu_bwd_plain(dy, x, w, b, pm, pr)
+
+        leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+
+        def today():
+            """the model's path before K5: group norm, SiLU, the conv's
+            rounding of its operand (outside autograd), and the backward
+            of the first two"""
+            for t in leaves:
+                t.grad = None
+            s = F.silu(F.group_norm(leaves[0], K5_GROUPS, leaves[1],
+                                    leaves[2], G.EPS))
+            s.detach().to(torch.bfloat16).to(torch.float32)
+            s.backward(dy)
+
+        r = {}
+        for prefix, fn in (("fwd_", fwd), ("bwd_", bwd), ("", both)):
+            r[prefix + "ms"] = time_ms(fn, 20, flush)
+            r[prefix + "warm_ms"] = _device_ms(fn)[0]
+        kernels = [k[:60] for k, _, _ in _device_ms(both)[1]]
+        r.update(_bound(5 * 4 * x.numel(), ops=[(0, PEAK_F32)]),
+                 fwd_bound_ms=2 * 4 * x.numel() / PEAK_BYTES * 1e3,
+                 bwd_bound_ms=3 * 4 * x.numel() / PEAK_BYTES * 1e3,
+                 plain_ms=time_ms(plain, 10), library_ms=time_ms(
+                     today, 20, flush), warm_library_ms=_device_ms(today)[0],
+                 repeats=repeats, kernels=kernels, **e)
+        r["bound_us"] = r["bound_ms"] * 1e3
+        out[key] = r
+        log("K5 (group_norm_silu) at {}, x {}: forward L2-cold {:.4f} / "
+            "warm {:.4f} ms ({:.1%} of its {:.3f} ms bound), backward "
+            "{:.4f} / {:.4f} ms ({:.1%} of {:.3f} ms), both {:.4f} / "
+            "{:.4f} ms = {:.1%} of the {:.3f} ms bound (5 float32 passes, "
+            "{}); today's path {:.4f} / {:.4f} ms (K5 {:.3f}x); plain "
+            "{:.4f} ms; y off plain on {:.2e} of elements (largest "
+            "{:.2e}, beyond one bf16 step {}), stats {:.2e}, dx {:.2e}, "
+            "dweight {:.2e}, dbias "
+            "{:.2e}; two calls bitwise {}; kernels {}".format(
+                key, tuple(x.shape), r["fwd_ms"], r["fwd_warm_ms"],
+                r["fwd_bound_ms"] / r["fwd_ms"], r["fwd_bound_ms"],
+                r["bwd_ms"], r["bwd_warm_ms"],
+                r["bwd_bound_ms"] / r["bwd_ms"], r["bwd_bound_ms"],
+                r["ms"], r["warm_ms"], r["bound_ms"] / r["ms"],
+                r["bound_ms"], r["bound_by"], r["library_ms"],
+                r["warm_library_ms"], r["ms"] / r["library_ms"],
+                r["plain_ms"], e["y_flips"], e["y_largest_diff"],
+                e["y_beyond_one_step"],
+                e["stats_err"], e["dx_err"], e["dweight_err"],
+                e["dbias_err"], repeats, kernels))
+        if not (repeats and e["stats_err"] <= 1e-5
+                and e["y_beyond_one_step"] == 0 and e["y_flips"] <= 1e-3
+                and max(e["dx_err"], e["dweight_err"], e["dbias_err"])
+                <= 1e-4):
+            raise AssertionError("K5 at {}: {}, repeats {}".format(
+                key, e, repeats))
+        del x, dy, y, grads, leaves
     del flush
     return out
 
@@ -3465,6 +3602,9 @@ def main(argv=None):
     parser.add_argument("--precision-only", action="store_true",
                         help="build K1/K2, check and time them (phase 4), "
                         "then run the default numerics phase (19) only")
+    parser.add_argument("--k5-only", action="store_true",
+                        help="build, check and time K5 only (phases 1, 2 "
+                        "and 20), then stop")
     parser.add_argument("--package-root", default=REPO,
                         help="import disvae_tpu_torch from this directory "
                         "(another checkout, to time its kernels in the same "
@@ -3482,6 +3622,12 @@ def main(argv=None):
     strict = root == REPO
 
     smi = phase_device()
+    G = _k5_module()
+    if args.k5_only:
+        if G is not None:
+            phase_build({"group_norm_silu": G})
+        log(json.dumps({"group_norm_silu": phase_group_norm_silu(G)}))
+        return 0
     probe = _probe()
     floor = types.SimpleNamespace(build=probe.build_flat)
     if args.convt_only or args.precision_only:
@@ -3516,6 +3662,8 @@ def main(argv=None):
             shutil.rmtree(scratch, ignore_errors=True)
         return 0
     builds = {"log_qz": K, "convt3_bwd": C, "flat_floor": floor}
+    if G is not None:
+        builds["group_norm_silu"] = G
     native_build = {}
     if _native_gathers():
         from disvae_tpu_torch import native
@@ -3540,6 +3688,7 @@ def main(argv=None):
     record = phase_kernels(K, strict)
     convt = phase_convt_kernels(C, probe, paths["flat_floor"])
     thin = phase_thin_conv_dw(C)
+    k5 = phase_group_norm_silu(G)
     scratch = tempfile.mkdtemp(prefix="chip_smoke_", dir=build_dir)
     try:
         exp_dir, datasets, launches, metrics, timings = phase_main_path(
@@ -3626,7 +3775,12 @@ def main(argv=None):
                  name: dict(device_launches=r["device_launches"][2],
                             graph_replays=r["graph_replays"],
                             steps=r["steps"]) for name, r in zoo.items()},
-             shapes=thin)]}))
+             shapes=thin),
+        dict(name="group_norm_silu", route="cuda",
+             source="disvae_tpu_torch/csrc/group_norm_silu.cu",
+             replaces="PyTorch's GroupNorm, SiLU and the conv's bf16 "
+             "rounding before AutoencoderKL's convs (no TPU kernel)",
+             shapes=k5)]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -26,6 +26,10 @@ v, the output projection, the residual. Every conv and linear is an
 ops/precision.py module and the attention's two products go through
 `precision.matmul`, so the precision policy decides their numerics;
 GroupNorm, SiLU, the softmax and the reparameterisation run in float32.
+Under the ``default`` numerics on the card each GroupNorm -> SiLU that
+feeds a conv (50 at the published widths) is the hand-written kernel K5
+(ops/group_norm_silu.py), whose output the conv takes as its bf16-rounded
+operand (`precision.takes_group_norm_silu`, counted as `norm.k5`).
 
 The VAE container (models/vae.py) keeps its contract: images NHWC in [0,
 1] are mapped to [-1, 1] on entry and back on exit (no sigmoid), and the
@@ -42,7 +46,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from disvae_tpu_torch.ops import precision
-from disvae_tpu_torch.utils.trace import span
+from disvae_tpu_torch.ops.group_norm_silu import group_norm_silu
+from disvae_tpu_torch.utils.trace import count, span
 
 # https://huggingface.co/stabilityai/sd-vae-ft-mse/blob/main/config.json
 BLOCK_OUT_CHANNELS = (128, 256, 512, 512)
@@ -94,6 +99,16 @@ def _conv3(cin, cout, stride=1, padding=1):
     return precision.Conv2d(cin, cout, 3, stride=stride, padding=padding)
 
 
+def _norm_silu_conv(norm, conv, x):
+    """conv(silu(norm(x))); K5 computes silu(norm(x)) already rounded for
+    the conv where `precision.takes_group_norm_silu` routes it there."""
+    if precision.takes_group_norm_silu(x.dtype, x.device.type):
+        count("norm.k5")
+        return conv(group_norm_silu(x, norm.weight, norm.bias,
+                                    norm.num_groups, norm.eps), rounded=True)
+    return conv(F.silu(norm(x)))
+
+
 class ResnetBlock2D(nn.Module):
     def __init__(self, cin, cout, groups):
         super().__init__()
@@ -105,8 +120,8 @@ class ResnetBlock2D(nn.Module):
                               if cin != cout else None)
 
     def forward(self, x):
-        h = self.conv1(F.silu(self.norm1(x)))
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = _norm_silu_conv(self.norm1, self.conv1, x)
+        h = _norm_silu_conv(self.norm2, self.conv2, h)
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -213,7 +228,7 @@ class Encoder(nn.Module):
         for block in self.down_blocks:
             h = block(h)
         h = self.mid_block(h)
-        return self.conv_out(F.silu(self.conv_norm_out(h)))
+        return _norm_silu_conv(self.conv_norm_out, self.conv_out, h)
 
 
 class Decoder(nn.Module):
@@ -237,7 +252,7 @@ class Decoder(nn.Module):
         h = self.mid_block(self.conv_in(z))
         for block in self.up_blocks:
             h = block(h)
-        return self.conv_out(F.silu(self.conv_norm_out(h)))
+        return _norm_silu_conv(self.conv_norm_out, self.conv_out, h)
 
 
 def parts(img_size, latent_dim_, **arch):

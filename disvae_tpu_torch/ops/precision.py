@@ -28,7 +28,11 @@
   and sums in float32. A product of two activations (`matmul`: an
   attention's scores and its weighted sum) rounds both operands to bf16
   values, sums in float32 and rounds its cotangent in the backward, as
-  JAX's default dot of two float32 arrays does.
+  JAX's default dot of two float32 arrays does. On the card a GroupNorm
+  -> SiLU that feeds a conv (AutoencoderKL's) is the hand-written kernel
+  K5 (`takes_group_norm_silu`, ops/group_norm_silu.py), which writes the
+  bf16 values the conv multiplies; the conv takes them as they are
+  (`conv2d(..., rounded=True)`).
 
 JAX's other bf16 mode, ``compute_dtype="bfloat16"`` (bf16 activations,
 weights and outputs), is `models.vae.VAE(compute_dtype="bfloat16")`,
@@ -128,21 +132,31 @@ def _conv_backward(dy, x, w, kind, stride, padding, mask):
     return dx, dw
 
 
+def takes_group_norm_silu(dtype, device_type):
+    """Whether silu(group_norm(x)) before a conv goes to K5
+    (ops/group_norm_silu.py), which also rounds it to the bf16 values the
+    conv takes: the ``default`` numerics (float32 x outside autocast) on
+    the card. A pure function of what the call gets; everywhere else the
+    layers run PyTorch's group norm and SiLU and the conv rounds."""
+    return device_type == "cuda" and _default_numerics(dtype, device_type)
+
+
 class _Bf16Layer(torch.autograd.Function):
     """A conv, transposed conv or linear (`kind`) without bias on bf16-
-    rounded operands: x and w rounded to bf16 values, float32 sums and
+    rounded operands: x and w rounded to bf16 values (x taken as it is
+    when `rounded` says it holds bf16 values already), float32 sums and
     output. The backward rounds the incoming cotangent to bf16 values as
     the operand of dgrad and wgrad and returns float32 dx and dw for x and
     w (straight through their rounding)."""
 
     @staticmethod
-    def forward(ctx, x, w, kind, stride, padding):
+    def forward(ctx, x, w, kind, stride, padding, rounded):
         # K4 takes bf16 x: keep the rounding's bf16 copy for it
         ctx.k4 = takes_thin_conv_dw(kind, x.shape, w.shape, stride,
                                     padding, x.device.type,
                                     ctx.needs_input_grad[1])
-        xb = x.to(torch.bfloat16)
-        x, w = xb.to(x.dtype), round_bf16(w)
+        xb = x.to(torch.bfloat16) if ctx.k4 or not rounded else None
+        x, w = (x if rounded else xb.to(x.dtype)), round_bf16(w)
         ctx.save_for_backward(xb.contiguous() if ctx.k4 else x, w)
         ctx.layer = (kind, stride, padding)
         if kind == "linear":
@@ -166,7 +180,7 @@ class _Bf16Layer(torch.autograd.Function):
                 if mask[0]:
                     dx, _ = _conv_backward(dyb.float(), x.float(), w, kind,
                                            stride, padding, [True, False])
-                return dx, dw, None, None, None
+                return dx, dw, None, None, None, None
             x = x.float()
         if mask[1]:  # the route counters: K4's above, TF32 or float32
             trace.count("wgrad.f32" if kind != "linear" and _is_thin(w)
@@ -174,34 +188,40 @@ class _Bf16Layer(torch.autograd.Function):
         dy = round_bf16(dy)
         if kind != "linear":
             dx, dw = _conv_backward(dy, x, w, kind, stride, padding, mask)
-            return dx, dw, None, None, None
+            return dx, dw, None, None, None, None
         dy2 = dy.reshape(-1, dy.shape[-1])
         dx = dy @ w if mask[0] else None
         dw = dy2.t() @ x.reshape(-1, x.shape[-1]) if mask[1] else None
-        return dx, dw, None, None, None
+        return dx, dw, None, None, None, None
+
+
+def _default_numerics(dtype, device_type):
+    return (_policy == "default" and dtype == torch.float32
+            and not torch.is_autocast_enabled(device_type))
 
 
 def _rounds(x):
     """Whether a layer on `x` runs the ``default`` numerics: float32
     operands outside autocast, under the ``default`` policy."""
-    return (_policy == "default" and x.dtype == torch.float32
-            and not torch.is_autocast_enabled(x.device.type))
+    return _default_numerics(x.dtype, x.device.type)
 
 
-def _layer(kind, x, w, b, stride=1, padding=0):
+def _layer(kind, x, w, b, stride=1, padding=0, rounded=False):
     """The bias is added in float32 after the sums, so autograd sums db
     from the float32 cotangent."""
-    y = _Bf16Layer.apply(x, w, kind, stride, padding)
+    y = _Bf16Layer.apply(x, w, kind, stride, padding, rounded)
     if b is None:
         return y
     return y + (b if kind == "linear" else b.view(-1, 1, 1))
 
 
-def conv2d(x, w, b, stride=2, padding=1):
-    """F.conv2d under the policy (NCHW; torch's weight layout)."""
+def conv2d(x, w, b, stride=2, padding=1, rounded=False):
+    """F.conv2d under the policy (NCHW; torch's weight layout). Under
+    ``default``, `rounded` says that x holds bf16 values already (K5's
+    output): the layer multiplies and keeps x itself, no rounded copy."""
     if not _rounds(x):
         return F.conv2d(x, w, b, stride=stride, padding=padding)
-    return _layer("conv", x, w, b, stride, padding)
+    return _layer("conv", x, w, b, stride, padding, rounded)
 
 
 def conv_transpose2d(x, w, b, stride=2, padding=1):
@@ -250,9 +270,9 @@ def matmul(a, b):
 class Conv2d(nn.Conv2d):
     """nn.Conv2d whose forward is `conv2d` (same parameters and names)."""
 
-    def forward(self, x):
+    def forward(self, x, rounded=False):
         return conv2d(x, self.weight, self.bias, self.stride[0],
-                      self.padding[0])
+                      self.padding[0], rounded)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):

@@ -660,6 +660,87 @@ def test_default_layer_on_card_matches_float64(cuda, name, kind, xs, ws):
         assert err <= 1e-5, (name, k, err)
 
 
+# (n, c, h, w): K5 at kl-f8's GroupNorm -> SiLU sites (32 groups): the
+# 256^2 maps of 128 and 256 channels, 128^2 of 256, 32^2 of 512, at b2
+# and b12; a row whose last block is partial (H W = 10,000), and a
+# ragged H W (no 16-byte accesses)
+K5_SHAPES = [(12, 128, 256, 256), (2, 256, 256, 256), (12, 256, 128, 128),
+             (2, 512, 32, 32), (12, 512, 32, 32), (2, 64, 100, 100),
+             (3, 64, 5, 7)]
+
+
+def _k5_inputs(cuda, n, c, h, w, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = 3 * torch.randn((n, c, h, w), device=cuda, generator=g) + 1
+    weight = 1 + 0.5 * torch.randn(c, device=cuda, generator=g)
+    bias = 0.5 * torch.randn(c, device=cuda, generator=g)
+    dy = torch.randn((n, c, h, w), device=cuda, generator=g)
+    return x, weight, bias, dy
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n, c, h, w", K5_SHAPES)
+def test_group_norm_silu_matches_plain(cuda, n, c, h, w):
+    """K5 against its plain version on the card. Forward: each group's
+    mean and rstd within 1e-5, y bf16 values that are the plain version's
+    or one bf16 step from it, where the two float32 pre-SiLU values round
+    to neighbouring bf16 values (under 1e-3 of the elements; 1e-5 apart at
+    most where a = x scale + shift cancels to near 0). Backward on
+    one cotangent: dx, dweight and dbias within 1e-4 of scale of the plain
+    version's and of float64 autograd's of silu(group_norm(x)). One launch
+    of each half counted per call; a second call gives the same bits."""
+    import torch.nn.functional as F
+    from disvae_tpu_torch.ops import group_norm_silu as K
+    from disvae_tpu_torch.ops.precision import round_bf16
+    x, weight, bias, dy = _k5_inputs(cuda, n, c, h, w)
+    before = K.group_norm_silu_fwd.launches, K.group_norm_silu_bwd.launches
+    y, mean, rstd = K.group_norm_silu_fwd(x, weight, bias, 32)
+    grads = K.group_norm_silu_bwd(dy, x, weight, bias, mean, rstd)
+    torch.cuda.synchronize()
+    assert (K.group_norm_silu_fwd.launches - before[0],
+            K.group_norm_silu_bwd.launches - before[1]) == (1, 1)
+    ry, rmean, rrstd = K.group_norm_silu_fwd_plain(x, weight, bias, 32)
+    assert _rel(rmean, mean) <= 1e-5 and _rel(rrstd, rstd) <= 1e-5
+    assert torch.equal(y, round_bf16(y))
+    d = (y - ry).abs()
+    assert (d <= 2 ** -7 * ry.abs() + 1e-5).all().item()
+    assert (d > 0).float().mean().item() <= 1e-3
+    ref = K.group_norm_silu_bwd_plain(dy, x, weight, bias, rmean, rrstd)
+    xd, wd, bd = (t.double().requires_grad_() for t in (x, weight, bias))
+    F.silu(F.group_norm(xd, 32, wd, bd, K.EPS)).backward(dy.double())
+    for got, r, r64 in zip(grads, ref, (xd.grad, wd.grad, bd.grad)):
+        assert got.dtype == torch.float32 and got.shape == r.shape
+        assert _rel(r, got) <= 1e-4 and _rel(r64, got) <= 1e-4
+    y2, mean2, rstd2 = K.group_norm_silu_fwd(x, weight, bias, 32)
+    assert torch.equal(y, y2) and torch.equal(mean, mean2) \
+        and torch.equal(rstd, rstd2)
+    for a, b in zip(grads, K.group_norm_silu_bwd(dy, x, weight, bias, mean,
+                                                 rstd)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_group_norm_silu_autograd_on_card(cuda):
+    """`group_norm_silu` on the card launches K5 forward and backward,
+    takes a channels-last x (as AutoencoderKL's encoder makes them) as its
+    NCHW copy, and refuses a bf16 x before any launch."""
+    from disvae_tpu_torch.ops import group_norm_silu as K
+    x, weight, bias, dy = _k5_inputs(cuda, 2, 128, 64, 64, seed=1)
+    xs = [x.to(memory_format=torch.channels_last).requires_grad_(),
+          weight.clone().requires_grad_(), bias.clone().requires_grad_()]
+    before = K.group_norm_silu_fwd.launches, K.group_norm_silu_bwd.launches
+    K.group_norm_silu(*xs, 32).backward(dy)
+    assert (K.group_norm_silu_fwd.launches - before[0],
+            K.group_norm_silu_bwd.launches - before[1]) == (1, 1)
+    y, mean, rstd = K.group_norm_silu_fwd(x, weight, bias, 32)
+    dx, dw, db = K.group_norm_silu_bwd(dy, x, weight, bias, mean, rstd)
+    assert torch.equal(xs[0].grad, dx) and torch.equal(xs[1].grad, dw) \
+        and torch.equal(xs[2].grad, db)
+    with pytest.raises(TypeError):
+        K.group_norm_silu(x.bfloat16(), weight, bias, 32)
+    assert K.group_norm_silu_fwd.launches - before[0] == 2
+
+
 @pytest.mark.gpu
 def test_graphed_autoencoder_kl_step_is_the_eager_one(cuda):
     """Stable Diffusion's kl-f8 autoencoder at its published widths under
@@ -667,8 +748,11 @@ def test_graphed_autoencoder_kl_step_is_the_eager_one(cuda):
     super-steps of two steps, eagerly and graphed (warm, capture, replay)
     from one seed, give the same metrics and state bit for bit, with the
     float32 weight-gradient route counted once a thin layer per step
-    (four thin convs) in the eager steps and in the capture."""
+    (four thin convs) in the eager steps and in the capture, and K5's
+    route (`norm.k5`) and its forward launches 50 a step there: every
+    GroupNorm -> SiLU before a conv."""
     from disvae_tpu_torch.models.vae import init_specific_model
+    from disvae_tpu_torch.ops import group_norm_silu as K
     from disvae_tpu_torch.ops import precision as P
     from disvae_tpu_torch.ops.losses import get_loss_f, metric_key_order
     from disvae_tpu_torch.train.state import create_train_state
@@ -694,8 +778,11 @@ def test_graphed_autoencoder_kl_step_is_the_eager_one(cuda):
                 cfg, metric_key_order("betaH", 256), state=state,
                 graph_steps=2 if graph else None)
             trace.reset()
+            before = K.group_norm_silu_fwd.launches
             metrics = graph_run(step, state, wire, idx, 2)
-            out.append((metrics, state, step, trace.counts()))
+            counts = trace.counts()
+            counts["k5"] = K.group_norm_silu_fwd.launches - before
+            out.append((metrics, state, step, counts))
         torch.cuda.synchronize()
     finally:
         P.configure("highest")
@@ -704,6 +791,8 @@ def test_graphed_autoencoder_kl_step_is_the_eager_one(cuda):
     # the capture's call replays once, the third call again
     assert step.captured and step.replays == 2
     assert c_eager["wgrad.f32"] == 6 * 4 and c_graph["wgrad.f32"] == 4 * 4
+    assert c_eager["norm.k5"] == c_eager["k5"] == 6 * 50
+    assert c_graph["norm.k5"] == c_graph["k5"] == 4 * 50
     assert torch.equal(m_eager, m_graph)
     assert differences(s_eager, s_graph) == []
 
