@@ -8,6 +8,8 @@ float32 ramp init + delta * step / steps and clamp it); a whole step's
 gradients at the evidence run's settings as GRAD_L2 says.
 """
 
+import torch_threads  # noqa: F401  (first: the thread budget)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -26,6 +26,8 @@ softmax over keys ignores a shift common to them), so both sides hold
 rounding noise there.
 """
 
+import torch_threads  # noqa: F401  (first: the thread budget)
+
 import importlib.util
 import os
 

@@ -13,6 +13,8 @@ package's, on seeded numpy inputs.
   operands with float32 dx, or in bf16 inside autocast.
 """
 
+import torch_threads  # noqa: F401  (first: the thread budget)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

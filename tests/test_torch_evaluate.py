@@ -10,6 +10,8 @@ Tolerances, each against the JAX value:
   test_torch_models.py).
 """
 
+import torch_threads  # noqa: F401  (first: the thread budget)
+
 import json
 import os
 

@@ -10,6 +10,8 @@ The lattice is (shape, scale, orientation, posX, posY) = (3, 2, 2, 4, 4),
 factor sizes, so that the port's DSprites scores it on them.
 """
 
+from torch_threads import child_env  # first: the thread budget
+
 import hashlib
 import json
 import os
@@ -50,8 +52,7 @@ def _fabricate(root, lat_sizes=LAT_SIZES):
 def _evidence(tmp_path, *argv, cwd=None):
     """The evidence CLI on the caches under tmp_path/data, run in `cwd`
     (default tmp_path)."""
-    env = dict(os.environ, DISVAE_DATA_ROOT=str(tmp_path / "data"),
-               PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+    env = child_env(DISVAE_DATA_ROOT=str(tmp_path / "data"), PYTHONPATH=REPO)
     return subprocess.run(
         [sys.executable, "-m", "disvae_tpu_torch.evidence"] + list(argv),
         cwd=str(cwd or tmp_path), env=env, capture_output=True, text=True,
@@ -352,8 +353,8 @@ def test_default_final_convt_is_the_plain_cli_run_bit_for_bit(tmp_path):
             assert device["final_convt"] == "cudnn"
             assert device["train_leg"]["convt3_bwd_calls"] == 0
         else:
-            env = dict(os.environ, DISVAE_DATA_ROOT=str(tmp_path / "data"),
-                       PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+            env = child_env(DISVAE_DATA_ROOT=str(tmp_path / "data"),
+                            PYTHONPATH=REPO)
             proc = subprocess.run(
                 [sys.executable, "-m", "disvae_tpu_torch"] + cli_argv,
                 cwd=str(cwd), env=env, capture_output=True, text=True,

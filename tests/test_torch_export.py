@@ -5,6 +5,8 @@ exactly (the same float32 ops in the same order). Lattice: the port's copy
 renders the JAX package's sprites bit for bit.
 """
 
+import torch_threads  # noqa: F401  (first: the thread budget)
+
 import os
 
 import jax

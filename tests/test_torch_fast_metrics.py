@@ -18,6 +18,8 @@ Tolerances:
 * Resident against streamed feed: bit-identical.
 """
 
+import torch_threads  # noqa: F401  (first: the thread budget)
+
 import os
 
 import jax.numpy as jnp

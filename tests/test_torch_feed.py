@@ -3,6 +3,8 @@ port Trainer's resident feed walks the JAX loader's epoch order, and the
 bitpacked dsprites wire decodes at the evidence run's b64 to the JAX
 package's images, bit for bit."""
 
+import torch_threads  # noqa: F401  (first: the thread budget)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

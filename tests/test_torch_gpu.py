@@ -13,6 +13,8 @@ roundings of the result where |log q| is large enough that one ulp exceeds
 1e-4; K1/K2, as each test states.
 """
 
+import torch_threads  # noqa: F401  (first: the thread budget)
+
 import numpy as np
 import pytest
 import torch

@@ -7,6 +7,8 @@ version). The kernel itself runs only on the card (tests/test_torch_gpu.py).
 torch only, no jax.
 """
 
+import torch_threads  # noqa: F401  (first: the thread budget)
+
 import importlib.util
 import os
 import sys

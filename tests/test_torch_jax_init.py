@@ -7,6 +7,8 @@ the file's bytes differ between two writes of the same arrays: the
 committed file is compared array by array, each bit for bit.
 """
 
+import torch_threads  # noqa: F401  (first: the thread budget)
+
 import json
 import os
 import sys

@@ -7,6 +7,8 @@ The implementations sum the M exponentials in different orders and chunk
 sizes in float32.
 """
 
+import torch_threads  # noqa: F401  (first: the thread budget)
+
 import functools
 
 import jax

@@ -6,6 +6,8 @@ a per-dimension KL of a near-prior latent). Both sides compute in float32
 and differ by summation order: the bernoulli term sums ~10^4 pixels.
 """
 
+import torch_threads  # noqa: F401  (first: the thread budget)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

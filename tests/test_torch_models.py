@@ -9,6 +9,8 @@ float32 convolutions and matmuls at full precision (the JAX tests pin
 summation order.
 """
 
+import torch_threads  # noqa: F401  (first: the thread budget)
+
 import os
 import subprocess
 import sys

@@ -26,6 +26,8 @@ Tolerances:
   over other sample groupings).
 """
 
+from torch_threads import child_env  # first: the thread budget
+
 import json
 import os
 import shutil
@@ -61,8 +63,9 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def _env(**extra):
-    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=REPO)
+def _env(procs, **extra):
+    """The environment of `procs` processes started at once."""
+    env = child_env(procs, PYTHONPATH=REPO)
     env.pop("XLA_FLAGS", None)
     env.update(extra)
     return env
@@ -92,7 +95,7 @@ def _launch(world, argv, cwd):
     port = str(_free_port())
     return _communicate([subprocess.Popen(
         [sys.executable, WORKER] + argv, cwd=cwd, env=_env(
-            RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
+            world, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
             MASTER_ADDR="127.0.0.1", MASTER_PORT=port),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(world)])
@@ -286,7 +289,7 @@ def _cli(site, cwd, extra, world=None):
         cmd = [sys.executable, "-m", "torch.distributed.run",
                "--nproc_per_node", str(world), "--master_addr", "127.0.0.1",
                "--master_port", str(_free_port()), "-m", "disvae_tpu_torch"]
-    env = _env(PYTHONPATH=os.pathsep.join([site, REPO]),
+    env = _env(world or 1, PYTHONPATH=os.pathsep.join([site, REPO]),
                DISVAE_DATA_ROOT=os.path.join(site, "data"), AUDIT_DIR=cwd)
     out, = _communicate([subprocess.Popen(
         cmd + CLI_ARGS + extra, cwd=cwd, env=env, stdout=subprocess.PIPE,

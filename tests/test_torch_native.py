@@ -5,6 +5,8 @@ Every comparison is bitwise: the gathers copy bytes, and the float32 one
 multiplies each byte by the scale once, as numpy does.
 """
 
+import torch_threads  # noqa: F401  (first: the thread budget)
+
 import os
 import subprocess
 import sys

@@ -23,6 +23,8 @@ Tolerances, each against the JAX value unless stated:
 * world size 1: bitwise.
 """
 
+import torch_threads  # noqa: F401  (first: the thread budget)
+
 import os
 import socket
 import subprocess

@@ -7,6 +7,8 @@ Two layers of gating:
   from the reference tree).
 """
 
+import torch_threads  # noqa: F401  (first: the thread budget)
+
 import os
 
 import numpy as np

@@ -40,6 +40,8 @@ Bounds, max |d| / max |ref| unless said otherwise:
   the plain F.conv2d / F.conv_transpose2d / F.linear calls.
 """
 
+import torch_threads  # noqa: F401  (first: the thread budget)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

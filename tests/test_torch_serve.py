@@ -7,6 +7,8 @@ request at its own size, so ragged sizes also show that the padding never
 leaked into the JAX outputs the port is held to.
 """
 
+import torch_threads  # noqa: F401  (first: the thread budget)
+
 import os
 
 import jax

@@ -5,6 +5,8 @@ it, and the layer's backward through it. The kernel itself runs only on
 the card (tests/test_torch_gpu.py). torch only, no jax.
 """
 
+import torch_threads  # noqa: F401  (first: the thread budget)
+
 import numpy as np
 import pytest
 import torch

@@ -25,6 +25,8 @@ Tolerances:
   shapes.
 """
 
+import torch_threads  # noqa: F401  (first: the thread budget)
+
 import json
 import os
 import shutil
@@ -245,7 +247,7 @@ def _torchrun(site, cwd, world, extra):
     cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
            str(world), "--master_addr", "127.0.0.1", "--master_port",
            str(_free_port()), "-m", "disvae_tpu_torch"]
-    env = _env(PYTHONPATH=os.pathsep.join([site, REPO]),
+    env = _env(world, PYTHONPATH=os.pathsep.join([site, REPO]),
                DISVAE_DATA_ROOT=os.path.join(site, "data"))
     out, = _communicate([subprocess.Popen(
         cmd + TP_ARGS + extra, cwd=cwd, env=env, stdout=subprocess.PIPE,

@@ -5,6 +5,8 @@ batch, per sweep chunk and per epoch, with the phases timing what
 `last_metrics_timings` times. Nothing the program reports changes under
 the profiler."""
 
+import torch_threads  # noqa: F401  (first: the thread budget)
+
 import contextlib
 import os
 import sys

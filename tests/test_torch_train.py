@@ -15,6 +15,8 @@ resident = streaming, pipelined = sequential and a resumed run = a straight
 one hold bit for bit.
 """
 
+import torch_threads  # noqa: F401  (first: the thread budget)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -11,6 +11,8 @@ Pillow's quantiser, so the two packages' animations are compared through
 their frames before quantisation.
 """
 
+import torch_threads  # noqa: F401  (first: the thread budget)
+
 import importlib.util
 import os
 import shutil

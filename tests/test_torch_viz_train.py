@@ -5,6 +5,8 @@ the same run without it: a frame decodes in eval mode under no_grad, puts
 the model back in train mode, and draws from no generator of the run.
 """
 
+import torch_threads  # noqa: F401  (first: the thread budget)
+
 import numpy as np
 import pytest
 import torch

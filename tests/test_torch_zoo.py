@@ -4,6 +4,8 @@ the declared full-length runs of disvae_tpu_torch.zoo, parsed by the
 port's CLI, give that run's specs.json in every field that defines it;
 and the committed H100 sets of those runs against their JAX runs' gates."""
 
+from torch_threads import child_env  # first: the thread budget
+
 import json
 import os
 import sys
@@ -226,8 +228,7 @@ def test_zoo_runner_on_the_cpu(tmp_path):
     from tools import fabricate_mnist
     fabricate_mnist.main(["--root", str(tmp_path / "data" / "mnist"),
                           "--n", "64"])
-    env = dict(os.environ, DISVAE_DATA_ROOT=str(tmp_path / "data"),
-               PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+    env = child_env(DISVAE_DATA_ROOT=str(tmp_path / "data"), PYTHONPATH=REPO)
     argv = [sys.executable, "-m", "disvae_tpu_torch.zoo"]
     proc = subprocess.run(argv + ["VAE_mnist_full_h100", "--out",
                                   str(tmp_path / "out"), "--no-cuda"],
