@@ -247,7 +247,11 @@ Phases (any failure raises and exits non-zero; there is no CPU carry-on):
    written forward, dy and x read and dx written backward; two and three
    of them for the halves), the plain version's time, and today's path,
    PyTorch's group norm and SiLU with the conv's rounding (`.to(bf16)
-   .to(float32)`), forward and backward (`library_ms`).
+   .to(float32)`), forward and backward (`library_ms`). Then the same on
+   channels-last copies of x and dy through K5's NHWC kernels (`nhwc`,
+   held as above and to the NCHW kernels' y: one bf16 step at most, on
+   at most 2e-4 of the elements; y and dx channels-last), where the
+   package has them.
 
 Its last two lines are JSON: the kernels' record (per kernel `ms`, the
 L2-cold time, `warm_ms`, `plain_ms`, `bound_ms`/`bound_us`, `bound_by`,
@@ -1076,6 +1080,76 @@ def _k5_module():
     return group_norm_silu
 
 
+def _k5_nhwc(G, key, x, w, b, dy, y_nchw, flush):
+    """Phase 20's NHWC half at one site: K5 on the channels-last copies of
+    x and dy against its plain version and the NCHW kernels' y, timed as
+    the NCHW half is. Returns its record."""
+    xl, dyl = (t.contiguous(memory_format=torch.channels_last)
+               for t in (x, dy))
+    if G.layout(xl, K5_GROUPS) != "nhwc":
+        raise AssertionError("K5 NHWC at {}: not taken".format(key))
+    y, mean, rstd = G.group_norm_silu_fwd(xl, w, b, K5_GROUPS)
+    grads = G.group_norm_silu_bwd(dyl, xl, w, b, mean, rstd)
+    ry, rmean, rrstd = G.group_norm_silu_fwd_plain(xl, w, b, K5_GROUPS)
+    ref = G.group_norm_silu_bwd_plain(dyl, xl, w, b, rmean, rrstd)
+    d, dn = (y - ry).abs(), (y - y_nchw).abs()
+    e = {"y_flips": (d > 0).float().mean().item(),
+         "y_beyond_one_step": int((d > 2 ** -7 * ry.abs() + 1e-5).sum()),
+         "y_flips_vs_nchw": (dn > 0).float().mean().item(),
+         "y_beyond_one_step_vs_nchw": int(
+             (dn > 2 ** -7 * y_nchw.abs() + 1e-5).sum()),
+         "stats_err": max(_rel(rmean, mean), _rel(rrstd, rstd)),
+         "dx_err": _rel(ref[0], grads[0]),
+         "dweight_err": _rel(ref[1], grads[1]),
+         "dbias_err": _rel(ref[2], grads[2]),
+         "channels_last": all(t.is_contiguous(
+             memory_format=torch.channels_last) for t in (y, grads[0]))}
+    again = G.group_norm_silu_bwd(dyl, xl, w, b, mean, rstd)
+    repeats = (torch.equal(y, G.group_norm_silu_fwd(xl, w, b, K5_GROUPS)[0])
+               and all(torch.equal(p, q) for p, q in zip(grads, again)))
+    del ry, ref, again, d, dn
+
+    def fwd():
+        G.group_norm_silu_fwd(xl, w, b, K5_GROUPS)
+
+    def bwd():
+        G.group_norm_silu_bwd(dyl, xl, w, b, mean, rstd)
+
+    def both():
+        fwd()
+        bwd()
+
+    r = {}
+    for prefix, fn in (("fwd_", fwd), ("bwd_", bwd), ("", both)):
+        r[prefix + "ms"] = time_ms(fn, 20, flush)
+        r[prefix + "warm_ms"] = _device_ms(fn)[0]
+    kernels = [k[:60] for k, _, _ in _device_ms(both)[1]]
+    r.update(_bound(5 * 4 * x.numel(), ops=[(0, PEAK_F32)]),
+             repeats=repeats, kernels=kernels, **e)
+    log("K5 NHWC at {}, channels-last x {}: forward L2-cold {:.4f} / warm "
+        "{:.4f} ms, backward {:.4f} / {:.4f} ms, both {:.4f} / {:.4f} ms = "
+        "{:.1%} of the {:.3f} ms bound; y off plain on {:.2e} of elements "
+        "(beyond one bf16 step {}), off the NCHW kernels' on {:.2e} (beyond "
+        "one step {}), stats {:.2e}, dx {:.2e}, dweight {:.2e}, dbias "
+        "{:.2e}; y and dx channels-last {}; two calls bitwise {}; kernels "
+        "{}".format(key, tuple(xl.shape), r["fwd_ms"], r["fwd_warm_ms"],
+                    r["bwd_ms"], r["bwd_warm_ms"], r["ms"], r["warm_ms"],
+                    r["bound_ms"] / r["ms"], r["bound_ms"], e["y_flips"],
+                    e["y_beyond_one_step"], e["y_flips_vs_nchw"],
+                    e["y_beyond_one_step_vs_nchw"], e["stats_err"],
+                    e["dx_err"], e["dweight_err"], e["dbias_err"],
+                    e["channels_last"], repeats, kernels))
+    if not (repeats and e["channels_last"] and e["stats_err"] <= 1e-5
+            and e["y_beyond_one_step"] == 0 and e["y_flips"] <= 1e-3
+            and e["y_beyond_one_step_vs_nchw"] == 0
+            and e["y_flips_vs_nchw"] <= 2e-4
+            and max(e["dx_err"], e["dweight_err"], e["dbias_err"])
+            <= 1e-4):
+        raise AssertionError("K5 NHWC at {}: {}, repeats {}".format(
+            key, e, repeats))
+    return r
+
+
 def phase_group_norm_silu(G):
     """Phase 20 (module docstring). Returns {site: record}, or None for a
     package without K5."""
@@ -1149,6 +1223,10 @@ def phase_group_norm_silu(G):
                      today, 20, flush), warm_library_ms=_device_ms(today)[0],
                  repeats=repeats, kernels=kernels, **e)
         r["bound_us"] = r["bound_ms"] * 1e3
+        if hasattr(G, "layout"):  # the NHWC kernels
+            r["nhwc"] = _k5_nhwc(G, key, x, w, b, dy, y, flush)
+        else:
+            log("K5 NHWC: not in this package")
         out[key] = r
         log("K5 (group_norm_silu) at {}, x {}: forward L2-cold {:.4f} / "
             "warm {:.4f} ms ({:.1%} of its {:.3f} ms bound), backward "

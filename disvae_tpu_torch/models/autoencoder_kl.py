@@ -31,6 +31,15 @@ feeds a conv (50 at the published widths) is the hand-written kernel K5
 (ops/group_norm_silu.py), whose output the conv takes as its bf16-rounded
 operand (`precision.takes_group_norm_silu`, counted as `norm.k5`).
 
+Where K5 takes the GroupNorms (`channels_last`) the maps are
+channels-last throughout: `encode`'s NHWC images are a channels-last view
+of NCHW, `decode` turns the latent channels-last once before
+`post_quant_conv`, and every layer keeps the layout it is given (convs,
+bias and residual adds, padding, nearest upsampling, K5's NHWC kernels),
+so cuDNN's NHWC convs take their operands with no transform and every
+add is of one layout. Only the weights stay NCHW, and the attention's
+PyTorch GroupNorm makes its own NCHW copy.
+
 The VAE container (models/vae.py) keeps its contract: images NHWC in [0,
 1] are mapped to [-1, 1] on entry and back on exit (no sigmoid), and the
 latent is flattened in NCHW order, `latent_dim` = 4 * H/8 * W/8. The
@@ -271,10 +280,30 @@ def parts(img_size, latent_dim_, **arch):
             "post_quant_conv": precision.Conv2d(lc, lc, 1, padding=0)}
 
 
+def channels_last(x):
+    """Whether the model turns its maps channels-last: where K5 takes the
+    GroupNorms on the card (`precision.takes_group_norm_silu`), since K5
+    and cuDNN's NHWC convs then keep that layout through every layer.
+    Elsewhere the maps keep the layout they come in, as the plain
+    reference's do: PyTorch's CUDA GroupNorm copies a channels-last map to
+    NCHW, and on the CPU its convs and group norm sum a channels-last map
+    in another order than an NCHW one."""
+    return x.device.type == "cuda" and precision.takes_group_norm_silu(
+        x.dtype, x.device.type)
+
+
+def _maps(h):
+    """h channels-last where `channels_last` says so (a copy only where h
+    is not already), else as it is."""
+    return h.contiguous(memory_format=torch.channels_last) \
+        if channels_last(h) else h
+
+
 def encode(vae, x):
     """(N, H, W, C) in [0, 1] -> (mean, clamped logvar), each (N,
     latent_dim) in the latent's NCHW order."""
-    h = x.permute(0, 3, 1, 2) * 2 - 1
+    # contiguous NHWC images are a channels-last view already
+    h = _maps(x.permute(0, 3, 1, 2) * 2 - 1)
     # a no-op but under the bf16 compute dtype (models/vae.py)
     moments = vae.quant_conv(vae.encoder(h)).float()
     mean, logvar = moments.chunk(2, dim=1)
@@ -288,7 +317,7 @@ def decode(vae, z):
     f = 2 ** (len(vae.decoder.up_blocks) - 1)
     h = z.view(z.shape[0], vae.post_quant_conv.in_channels,
                vae.img_size[1] // f, vae.img_size[2] // f)
-    y = vae.decoder(vae.post_quant_conv(h)).float()
+    y = vae.decoder(vae.post_quant_conv(_maps(h))).float()
     return ((y + 1) / 2).permute(0, 2, 3, 1)
 
 

@@ -292,6 +292,49 @@ def test_spans_and_wgrad_route_counts(policy):
     assert trace.tally() == {} and trace.counts()["wgrad.f32"] == 4
 
 
+def test_maps_stay_channels_last_where_k5_runs(monkeypatch):
+    """Where K5 takes the GroupNorms (here its route forced on CPU
+    tensors, its plain version standing in, as on the card) every conv of
+    the encoder and of the decoder gets a channels-last input, forward:
+    the decoder's latent is turned channels-last once and no layer turns
+    it back. 16 groups keep 4 and 8 channels a group, which K5's NHWC
+    layout takes, so K5 counts each of the 30 sites channels-last and
+    makes no copy. Without the route the maps keep the layout they come
+    in (the decoder NCHW, as the plain reference's)."""
+    precision.configure("default")
+    model = init_specific_model("AutoencoderKL", IMG, LATENT,
+                                generator=torch.Generator().manual_seed(0),
+                                norm_num_groups=16, **SMALL)
+    xs, eps = _batches(1)
+    seen = {}
+
+    def hook(name):
+        def pre(module, args):
+            seen[name] = args[0].is_contiguous(
+                memory_format=torch.channels_last)
+        return pre
+    convs = {n: m for n, m in model.named_modules()
+             if isinstance(m, precision.Conv2d)}
+    for n, m in convs.items():
+        m.register_forward_pre_hook(hook(n))
+    _step(model, xs[0], eps[0])
+    assert not seen["post_quant_conv"] and not seen["decoder.conv_in"]
+    route = precision.takes_group_norm_silu
+    monkeypatch.setattr(precision, "takes_group_norm_silu",
+                        lambda dtype, device: route(dtype, "cuda"))
+    monkeypatch.setattr(A, "channels_last", lambda x: route(x.dtype, "cuda"))
+    seen.clear()
+    trace.reset()
+    _step(model, xs[0], eps[0])
+    assert sorted(seen) == sorted(convs)
+    assert any(n.startswith("encoder.") for n in seen)
+    assert any(n.startswith("decoder.") for n in seen)
+    assert [n for n, last in seen.items() if not last] == []
+    counts = trace.counts()
+    assert counts["norm.k5"] == counts["norm.k5_nhwc"] == 30
+    assert "norm.k5_copy" not in counts
+
+
 def _hq_dataset(n=24):
     imgs = (np.random.RandomState(4).rand(n, 32, 32, 3) * 255).astype(
         np.uint8)

@@ -721,26 +721,94 @@ def test_group_norm_silu_matches_plain(cuda, n, c, h, w):
         assert torch.equal(a, b)
 
 
+# (n, c, h, w): channels-last K5 at kl-f8's three widths (4, 8 and 16
+# channels a group), and runs whose last step of rows is partial
+K5_NHWC_SHAPES = [(2, 128, 64, 64), (2, 256, 32, 32), (2, 512, 16, 16),
+                  (3, 128, 10, 10), (12, 512, 32, 32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n, c, h, w", K5_NHWC_SHAPES)
+def test_group_norm_silu_nhwc_matches_plain(cuda, n, c, h, w):
+    """K5's NHWC kernels on channels-last x against the plain version,
+    held as the NCHW kernels are (test_group_norm_silu_matches_plain), y
+    and dx channels-last; two calls give the same bits; and y is the NCHW
+    kernels' on all but 2e-4 of the elements, one bf16 step at most
+    there (the two sum each group in another order, so mean and rstd may
+    differ in their last bits, and each flips some 4e-5 of the elements
+    against the plain version)."""
+    from disvae_tpu_torch.ops import group_norm_silu as K
+    from disvae_tpu_torch.ops.precision import round_bf16
+    x, weight, bias, dy = _k5_inputs(cuda, n, c, h, w, seed=2)
+    xl, dyl = (t.contiguous(memory_format=torch.channels_last)
+               for t in (x, dy))
+    assert K.layout(xl, 32) == "nhwc"
+    y, mean, rstd = K.group_norm_silu_fwd(xl, weight, bias, 32)
+    grads = K.group_norm_silu_bwd(dyl, xl, weight, bias, mean, rstd)
+    torch.cuda.synchronize()
+    for t in (y, grads[0]):
+        assert t.is_contiguous(memory_format=torch.channels_last)
+    ry, rmean, rrstd = K.group_norm_silu_fwd_plain(xl, weight, bias, 32)
+    assert _rel(rmean, mean) <= 1e-5 and _rel(rrstd, rstd) <= 1e-5
+    assert torch.equal(y, round_bf16(y))
+    d = (y - ry).abs()
+    assert (d <= 2 ** -7 * ry.abs() + 1e-5).all().item()
+    assert (d > 0).float().mean().item() <= 1e-3
+    ref = K.group_norm_silu_bwd_plain(dyl, xl, weight, bias, rmean, rrstd)
+    for got, r in zip(grads, ref):
+        assert _rel(r, got) <= 1e-4
+    y2, mean2, rstd2 = K.group_norm_silu_fwd(xl, weight, bias, 32)
+    assert torch.equal(y, y2) and torch.equal(mean, mean2) \
+        and torch.equal(rstd, rstd2)
+    for a, b in zip(grads, K.group_norm_silu_bwd(dyl, xl, weight, bias,
+                                                 mean, rstd)):
+        assert torch.equal(a, b)
+    yn = K.group_norm_silu_fwd(x, weight, bias, 32)[0]
+    d = (y - yn).abs()
+    assert (d <= 2 ** -7 * yn.abs() + 1e-5).all().item()
+    assert (d > 0).float().mean().item() <= 2e-4
+
+
 @pytest.mark.gpu
 def test_group_norm_silu_autograd_on_card(cuda):
-    """`group_norm_silu` on the card launches K5 forward and backward,
-    takes a channels-last x (as AutoencoderKL's encoder makes them) as its
-    NCHW copy, and refuses a bf16 x before any launch."""
+    """`group_norm_silu` on the card launches K5 forward and backward in
+    x's layout: a channels-last x (as AutoencoderKL's maps are) runs the
+    NHWC kernels as it lies, counted as `norm.k5_nhwc`, and gets a
+    channels-last dx; an x that is neither layout takes one counted copy
+    to NCHW and the NCHW kernels' results; a bf16 x is refused before any
+    launch."""
     from disvae_tpu_torch.ops import group_norm_silu as K
+    from disvae_tpu_torch.utils import trace
     x, weight, bias, dy = _k5_inputs(cuda, 2, 128, 64, 64, seed=1)
-    xs = [x.to(memory_format=torch.channels_last).requires_grad_(),
-          weight.clone().requires_grad_(), bias.clone().requires_grad_()]
-    before = K.group_norm_silu_fwd.launches, K.group_norm_silu_bwd.launches
-    K.group_norm_silu(*xs, 32).backward(dy)
-    assert (K.group_norm_silu_fwd.launches - before[0],
-            K.group_norm_silu_bwd.launches - before[1]) == (1, 1)
-    y, mean, rstd = K.group_norm_silu_fwd(x, weight, bias, 32)
-    dx, dw, db = K.group_norm_silu_bwd(dy, x, weight, bias, mean, rstd)
-    assert torch.equal(xs[0].grad, dx) and torch.equal(xs[1].grad, dw) \
-        and torch.equal(xs[2].grad, db)
+    xl, dyl = (t.contiguous(memory_format=torch.channels_last)
+               for t in (x, dy))
+    odd = x.transpose(2, 3).contiguous().transpose(2, 3)
+    for inp, g, fmt, counted in ((xl, dyl, "nhwc", {"norm.k5_nhwc": 1}),
+                                 (odd, dy, "nchw", {"norm.k5_copy": 1})):
+        xs = [inp.clone(memory_format=torch.preserve_format)
+              .requires_grad_(), weight.clone().requires_grad_(),
+              bias.clone().requires_grad_()]
+        before = (K.group_norm_silu_fwd.launches,
+                  K.group_norm_silu_bwd.launches)
+        trace.reset()
+        # autograd.grad: the backward's own dx, not a leaf's .grad (which
+        # takes the leaf's strides)
+        got = torch.autograd.grad(K.group_norm_silu(*xs, 32), xs, g)
+        assert trace.counts() == counted
+        assert (K.group_norm_silu_fwd.launches - before[0],
+                K.group_norm_silu_bwd.launches - before[1]) == (1, 1)
+        ref = xl if fmt == "nhwc" else x
+        gref = dyl if fmt == "nhwc" else dy
+        y, mean, rstd = K.group_norm_silu_fwd(ref, weight, bias, 32)
+        dx, dw, db = K.group_norm_silu_bwd(gref, ref, weight, bias, mean,
+                                           rstd)
+        assert K.layout(got[0], 32) == fmt == K.layout(dx, 32)
+        assert all(torch.equal(a, r) for a, r in zip(got, (dx, dw, db)))
+    trace.reset()
+    before = K.group_norm_silu_fwd.launches
     with pytest.raises(TypeError):
         K.group_norm_silu(x.bfloat16(), weight, bias, 32)
-    assert K.group_norm_silu_fwd.launches - before[0] == 2
+    assert K.group_norm_silu_fwd.launches == before
 
 
 @pytest.mark.gpu
@@ -752,7 +820,8 @@ def test_graphed_autoencoder_kl_step_is_the_eager_one(cuda):
     float32 weight-gradient route counted once a thin layer per step
     (four thin convs) in the eager steps and in the capture, and K5's
     route (`norm.k5`) and its forward launches 50 a step there: every
-    GroupNorm -> SiLU before a conv."""
+    GroupNorm -> SiLU before a conv, each on a channels-last map that K5's
+    NHWC kernels take as it lies (`norm.k5_nhwc`, no `norm.k5_copy`)."""
     from disvae_tpu_torch.models.vae import init_specific_model
     from disvae_tpu_torch.ops import group_norm_silu as K
     from disvae_tpu_torch.ops import precision as P
@@ -795,6 +864,9 @@ def test_graphed_autoencoder_kl_step_is_the_eager_one(cuda):
     assert c_eager["wgrad.f32"] == 6 * 4 and c_graph["wgrad.f32"] == 4 * 4
     assert c_eager["norm.k5"] == c_eager["k5"] == 6 * 50
     assert c_graph["norm.k5"] == c_graph["k5"] == 4 * 50
+    for c in (c_eager, c_graph):
+        assert c["norm.k5_nhwc"] == c["norm.k5"]
+        assert c.get("norm.k5_copy", 0) == 0
     assert torch.equal(m_eager, m_graph)
     assert differences(s_eager, s_graph) == []
 

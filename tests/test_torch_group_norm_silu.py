@@ -107,6 +107,54 @@ def test_on_the_cpu_the_entry_is_the_plain_version():
         K.group_norm_silu(x, weight, bias, 5)
 
 
+@pytest.mark.parametrize("cpg", [4, 8, 16])
+def test_plain_version_keeps_a_channels_last_layout(cpg):
+    """K5's layouts on the CPU (kl-f8's 4, 8 and 16 channels a group at 32
+    groups; 8 groups here): a channels-last x runs in the NHWC layout
+    (counted as `norm.k5_nhwc`, no copy) and gets a channels-last y and
+    dx, whose values, and dweight and dbias, are the NCHW call's bit for
+    bit; an x that is neither takes one copy to NCHW (`norm.k5_copy`,
+    once for the forward and the backward), and a dy that does not lie as
+    the forward's x one more."""
+    groups = 8
+    x, weight, bias, dy = _inputs(2, groups * cpg, 6, 5, seed=cpg)
+    assert K.layout(x, groups) == "nchw"
+    last = x.contiguous(memory_format=torch.channels_last)
+    assert K.layout(last, groups) == "nhwc"
+    out = []
+    for t, g in ((x, dy), (last, dy.contiguous(
+            memory_format=torch.channels_last))):
+        trace.reset()
+        leaves = [t.clone(memory_format=torch.preserve_format)
+                  .requires_grad_(), weight.clone().requires_grad_(),
+                  bias.clone().requires_grad_()]
+        y = K.group_norm_silu(*leaves, groups)
+        # the backward's own dx, not a leaf's .grad (which takes the leaf's
+        # strides)
+        out.append((y, *torch.autograd.grad(y, leaves, g), trace.counts()))
+    (y0, dx0, dw0, db0, c0), (y1, dx1, dw1, db1, c1) = out
+    assert c0 == {} and c1 == {"norm.k5_nhwc": 1}
+    for a in (y1, dx1):
+        assert a.is_contiguous(memory_format=torch.channels_last)
+        assert not a.is_contiguous()
+    for a, b in ((y0, y1), (dx0, dx1), (dw0, dw1), (db0, db1)):
+        assert torch.equal(a, b)
+    # neither layout: a copy (the forward keeps it for the backward)
+    trace.reset()
+    odd = x.transpose(2, 3).contiguous().transpose(2, 3).requires_grad_()
+    assert K.layout(odd, groups) is None
+    y2 = K.group_norm_silu(odd, weight, bias, groups)
+    (dx2,) = torch.autograd.grad(y2, odd, dy)
+    assert trace.counts() == {"norm.k5_copy": 1}
+    assert K.layout(y2, groups) == K.layout(dx2, groups) == "nchw"
+    assert torch.equal(y2, y0) and torch.equal(dx2, dx0)
+    # a channels-last forward given an NCHW cotangent copies it
+    trace.reset()
+    K.group_norm_silu(last.clone().requires_grad_(), weight, bias,
+                      groups).backward(dy)
+    assert trace.counts() == {"norm.k5_nhwc": 1, "norm.k5_copy": 1}
+
+
 # (policy, autocast, dtype, device type, K5 takes it)
 ROUTES = {
     "default on the card": ("default", False, torch.float32, "cuda", True),
